@@ -1,0 +1,138 @@
+"""The per-batch device step on the bucket path: encode -> count -> classify.
+
+Port of nomalise_kmers_multi_large_tpu/engine/step.py::BatchStep for the
+k <= 15 bucket table in exact mode:
+
+  bases[R, L] --K1 encode--> keys[R, W] --sort (key, read id)--> K3 scan
+      --K4 upsert--> high[R], with total[R] = valid windows --> keep[B]
+
+PyTorch runs eagerly, so there is nothing to compile; ``step_many`` is a
+Python loop that carries the state through G batches, with the same results
+as G calls of ``step``. The table planes are updated in place: the state
+passed in is consumed (the JAX step donates it likewise).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from nomalise_kmers_multi_large_torch.models.diginorm import (
+    keep_mask_paired,
+    keep_mask_single,
+)
+from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
+    SENTINEL, encode_keys,
+)
+from nomalise_kmers_multi_large_torch.table.base import TableState
+from nomalise_kmers_multi_large_torch.table.bucket import BucketTable
+
+
+class StepStats(NamedTuple):
+    processed: torch.Tensor  # int32 [] valid records/pairs in this batch
+    printed: torch.Tensor    # int32 []
+    skipped: torch.Tensor    # int32 []
+
+
+class ReadTallies(NamedTuple):
+    high: torch.Tensor   # int32 [R] high-count windows per read
+    total: torch.Tensor  # int32 [R] valid windows per read
+
+
+def _on(x, device: torch.device) -> torch.Tensor:
+    """A host numpy array or a tensor, as a tensor on `device`."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device)
+
+
+class BatchStep:
+    """Batch functions of one table shard (bucket table, exact mode)."""
+
+    def __init__(self, table: BucketTable, *, k: int, depth_per_shard: int,
+                 coverage: float, canonical: bool, paired: bool,
+                 mode: str = "exact", pair_rule: str = "and",
+                 stride: int = 1):
+        if mode != "exact":
+            raise NotImplementedError(
+                f"mode={mode!r} is not ported yet; only exact mode runs")
+        self.table = table
+        self.device = table.device
+        self.k = k
+        self.depth = depth_per_shard
+        self.coverage = coverage
+        self.canonical = canonical
+        self.paired = paired
+        self.pair_rule = pair_rule
+        #: window stride: 1 = every window; s > 1 samples every s-th window
+        #: of the encoded keys (the same subset as the reference package)
+        self.stride = stride
+
+    def _keys(self, bases, lengths) -> torch.Tensor:
+        key = encode_keys(_on(bases, self.device), _on(lengths, self.device),
+                          self.k, self.canonical)
+        if self.stride > 1:
+            key = key[:, ::self.stride].contiguous()
+        return key
+
+    # ------------------------------------------------------------------
+    def step(self, state: TableState, bases, lengths, rec_valid):
+        """One batch.
+
+        Args:
+          state: table shard state (consumed: its planes are updated).
+          bases: uint8 [R, L] 2-bit base codes, rows in stream order
+            (paired: fwd0, rev0, fwd1, rev1, ...).
+          lengths: int32 [R]; 0 marks an invalid mate/read.
+          rec_valid: bool [B] record validity.
+
+        Returns (state', keep bool [B], StepStats, ReadTallies).
+        """
+        key = self._keys(bases, lengths)
+        state, out = self.table.process_batch_mixed(state, key,
+                                                    depth=self.depth)
+        total = (key != SENTINEL).sum(1, dtype=torch.int32)
+        return self._classify(state, out.high_per_read, total,
+                              _on(rec_valid, self.device))
+
+    def _classify(self, state, high_per_read, total_per_read, rec_valid):
+        """Keep/skip decision + batch stats from per-read window tallies."""
+        if self.paired:
+            keep = keep_mask_paired(
+                high_per_read[0::2], total_per_read[0::2],
+                high_per_read[1::2], total_per_read[1::2],
+                self.coverage, self.pair_rule,
+            )
+        else:
+            keep = keep_mask_single(high_per_read, total_per_read,
+                                    self.coverage)
+        keep = keep & rec_valid
+        nvalid = rec_valid.sum(dtype=torch.int32)
+        nprint = keep.sum(dtype=torch.int32)
+        stats = StepStats(processed=nvalid, printed=nprint,
+                          skipped=nvalid - nprint)
+        return state, keep, stats, ReadTallies(high=high_per_read,
+                                               total=total_per_read)
+
+    def step_many(self, state: TableState, bases, lengths, rec_valid):
+        """G batches in sequence (leading axis G on every operand), each
+        seeing the previous one's counts. Returns (state', keep [G, B],
+        StepStats of [G], ReadTallies of [G, R])."""
+        keeps, stats, tallies = [], [], []
+        for b, ln, rv in zip(bases, lengths, rec_valid):
+            state, keep, st, ta = self.step(state, b, ln, rv)
+            keeps.append(keep)
+            stats.append(st)
+            tallies.append(ta)
+        return (state, torch.stack(keeps),
+                StepStats(*(torch.stack(x) for x in zip(*stats))),
+                ReadTallies(*(torch.stack(x) for x in zip(*tallies))))
+
+    def seed_step(self, state: TableState, bases, lengths) -> TableState:
+        """Seeding: insert k-mers with count 0. The host pre-filters records
+        to the reference's len > k rule by zeroing their lengths."""
+        key = self._keys(bases, lengths)
+        state, _ = self.table.process_batch_mixed(state, key,
+                                                  depth=self.depth, seed=True)
+        return state
