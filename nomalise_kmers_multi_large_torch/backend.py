@@ -2,9 +2,11 @@
 
 Each ``csrc/*.cu`` source has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into a shared library of its own, loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds). Builds land in ``_build/<hash>/``
-beside this file, keyed by a hash of the sources and flags; the first kernel
-call of a process compiles every stale source, all of them in parallel.
+PyTorch headers, so a build takes seconds); one source may hold several
+kernels (segscan.cu holds the narrow and the wide scan). Builds land in
+``_build/<hash>/`` beside this file, keyed by a hash of the sources and
+flags; the first kernel call of a process compiles every stale source, all
+of them in parallel.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches and
 ``launch`` raises when that is not 0. Each successful launch adds one to the
@@ -32,10 +34,13 @@ KERNEL_SOURCES = {
     "encode_keys": "encode.cu",
     "rank_cand_scan": "segscan.cu",
     "bucket_batch": "bucket.cu",
+    "encode_keys_wide": "encode_wide.cu",
+    "rank_cand_scan_wide": "segscan.cu",
+    "bucket_batch_wide": "bucket_wide.cu",
 }
 
 _launches = {name: 0 for name in KERNEL_SOURCES}
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}  # by source
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
@@ -83,7 +88,8 @@ def build() -> dict[str, str]:
     with _lock:
         out_dir = build_dir()
         os.makedirs(out_dir, exist_ok=True)
-        paths = {src: _so_path(out_dir, src) for src in KERNEL_SOURCES.values()}
+        paths = {src: _so_path(out_dir, src)
+                 for src in sorted(set(KERNEL_SOURCES.values()))}
         todo = [(src, so) for src, so in paths.items() if not os.path.exists(so)]
         if not todo:
             return paths
@@ -112,12 +118,13 @@ def function(kernel: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     use), with its argument types declared and an int return."""
     fn = _functions.get((kernel, symbol))
     if fn is None:
-        lib = _libs.get(kernel)
+        src = KERNEL_SOURCES[kernel]
+        lib = _libs.get(src)
         if lib is None:
-            lib = ctypes.CDLL(build()[KERNEL_SOURCES[kernel]])
+            lib = ctypes.CDLL(build()[src])
             lib.nkm_error_string.argtypes = [ctypes.c_int]
             lib.nkm_error_string.restype = ctypes.c_char_p
-            _libs[kernel] = lib
+            _libs[src] = lib
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -129,7 +136,7 @@ def launch(kernel: str, fn: ctypes._CFuncPtr, *args):
     """Call a C entry point; raise on a CUDA error, else count the launch."""
     rc = fn(*args)
     if rc != 0:
-        msg = _libs[kernel].nkm_error_string(rc).decode()
+        msg = _libs[KERNEL_SOURCES[kernel]].nkm_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc}: {msg}")
     _launches[kernel] += 1
 

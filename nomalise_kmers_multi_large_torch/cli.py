@@ -84,13 +84,15 @@ def main(argv=None) -> int:
 
     os.makedirs(cfg.out_dir, exist_ok=True)
     norm = Normalizer(cfg, resolve_device(device))
-    # startup table report (reference parse_arguments :686)
+    # startup table report (reference parse_arguments :686): fingerprint
+    # and count planes of int32, plus the wide table's w2 plane at k > 16
     cap = norm.tables[0].capacity
+    bytes_per_slot = 12 if cfg.ksize > 16 else 8
     print(
         f"{cfg.table} count table: {cap:,} slots per shard "
         f"(maximum for k={cfg.ksize} is {4 ** cfg.ksize:,}); "
-        f"{cap * 8:,} bytes of {norm.device.type} memory for each of "
-        f"{cfg.shards} shards\n"
+        f"{cap * bytes_per_slot:,} bytes of {norm.device.type} memory for "
+        f"each of {cfg.shards} shards\n"
     )
     norm.run()
     return 0

@@ -16,13 +16,10 @@ __all__ = ["Config", "ConfigError", "port_config"]
 
 
 def port_config(cfg: Config) -> Config:
-    """Resolve ``table="auto"`` to the bucket table (k <= 15 and depth per
-    shard <= 65535), reject what is not ported, and validate."""
+    """Resolve ``table="auto"`` to the bucket table (depth per shard <=
+    65535; the wide bucket table at k = 16..31), reject what is not ported,
+    and validate."""
     if cfg.table == "auto":
-        if cfg.ksize > 15:
-            raise ConfigError(
-                f"k={cfg.ksize}: the wide bucket table (k = 16..31) is not "
-                "ported yet; use k <= 15")
         if cfg.depth_per_shard > 65535:
             raise ConfigError(
                 f"depth per shard {cfg.depth_per_shard} > 65535 needs the "
@@ -31,9 +28,6 @@ def port_config(cfg: Config) -> Config:
     if cfg.table != "bucket":
         raise ConfigError(f"--table {cfg.table} is not ported yet; only the "
                           "bucket table runs")
-    if cfg.ksize > 15:
-        raise ConfigError(f"k={cfg.ksize}: the wide bucket table is not "
-                          "ported yet; use k <= 15")
     unported = [
         (cfg.mode != "exact", f"--mode {cfg.mode}"),
         (bool(cfg.checkpoint_every) or cfg.resume,

@@ -1,25 +1,31 @@
-// K3: rank / candidate scan over the sorted key stream (narrow keys).
+// K3 and K3w: rank / candidate scan over the sorted key stream.
 //
 // Replaces nomalise_kmers_multi_large_tpu/ops/segscan.py::rank_cand_scan
-// (Pallas `_kernel`, wide=False), whose carry is chained from one grid step
-// to the next through SMEM on the TPU's in-order grid. Contract, for sorted
-// uint32 keys (sentinel 0xFFFFFFFF last) and their read ids:
-//   rank = 1-based position in the run of equal keys, clamped to 65535
-//   cand = index of the key among the distinct keys of its bucket row
-//          (row = key >> fp_bits), clamped to 128
+// (Pallas `_kernel`, narrow and wide=True), whose carry is chained from one
+// grid step to the next through SMEM on the TPU's in-order grid. Contract,
+// for sorted uint32 keys (sentinel 0xFFFFFFFF last) and their read ids:
+//   rank = 1-based position in the run of equal codes, clamped to 65535
+//   cand = index of the code among the distinct codes of its bucket row
+//          (row = key >> shift), clamped to 128
 //   p2   = (min(rid, n_reads - 1) << 16) | rank,  p3 = cand
+// Narrow (K3): the code is the key and shift = fp_bits. Wide (K3w, k > 15):
+// the code is the word pair (key, key2), sorted by (key, key2); a code
+// changes when either word changes, and the row comes from key alone, with
+// shift = row_shift.
 //
 // Both quantities are segmented sums, as in the TPU kernel: rank sums 1 and
-// resets where the key changes, cand sums "key changed" and resets where the
-// row changes. The combine (flag, value) is associative but not commutative,
-// so every scan step applies the earlier operand on the left.
+// resets where the code changes, cand sums "code changed" and resets where
+// the row changes. The combine (flag, value) is associative but not
+// commutative, so every scan step applies the earlier operand on the left.
 //
-// Bound on the H100: memory (read 8 B, write 8 B per element twice over the
-// keys). GPU blocks run in no order, so the TPU's chained carry becomes a
-// reduce-then-scan: (1) each tile of 2048 elements reduces to one aggregate,
-// (2) one block scans the tile aggregates into exclusive tile prefixes,
-// (3) each tile rescans its elements from its prefix and writes p2/p3. A run
-// or row that spans tiles keeps counting through the prefixes.
+// Bound on the H100: memory (read 8 B, or 12 B wide, and write 8 B per
+// element, twice over the keys). GPU blocks run in no order, so the TPU's
+// chained carry becomes a reduce-then-scan: (1) each tile of 2048 elements
+// reduces to one aggregate, (2) one block scans the tile aggregates into
+// exclusive tile prefixes, (3) each tile rescans its elements from its prefix
+// and writes p2/p3. An element compares both words with its predecessor in
+// device memory, so a run or row that spans tiles keeps counting through the
+// prefixes.
 #include "common.cuh"
 
 namespace {
@@ -55,14 +61,16 @@ __device__ __forceinline__ Seg shfl_up(const Seg& s, int d) {
   return o;
 }
 
+// key2 is null on the narrow path
 __device__ __forceinline__ Seg element(const uint32_t* __restrict__ key,
-                                       int64_t i, int fp_bits) {
+                                       const uint32_t* __restrict__ key2,
+                                       int64_t i, int shift) {
   const uint32_t k = key[i];
   bool changed = true, rchanged = true;
   if (i > 0) {
     const uint32_t p = key[i - 1];
-    changed = k != p;
-    rchanged = (k >> fp_bits) != (p >> fp_bits);
+    changed = k != p || (key2 != nullptr && key2[i] != key2[i - 1]);
+    rchanged = (k >> shift) != (p >> shift);
   }
   return Seg{changed, 1, rchanged, changed};
 }
@@ -96,13 +104,14 @@ __device__ Seg block_exclusive_scan(Seg v, Seg* total) {
   return combine(warp_excl, lane_excl);
 }
 
-__global__ void tile_reduce(const uint32_t* __restrict__ key, int64_t n,
-                            int fp_bits, Seg* __restrict__ tile_agg) {
+__global__ void tile_reduce(const uint32_t* __restrict__ key,
+                            const uint32_t* __restrict__ key2, int64_t n,
+                            int shift, Seg* __restrict__ tile_agg) {
   const int64_t base =
       static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
   Seg acc = identity();
   for (int j = 0; j < kItems; ++j) {
-    if (base + j < n) acc = combine(acc, element(key, base + j, fp_bits));
+    if (base + j < n) acc = combine(acc, element(key, key2, base + j, shift));
   }
   Seg total;
   block_exclusive_scan(acc, &total);
@@ -123,8 +132,9 @@ __global__ void tile_scan(Seg* __restrict__ tile_agg, int64_t n_tiles) {
 }
 
 __global__ void tile_apply(const uint32_t* __restrict__ key,
+                           const uint32_t* __restrict__ key2,
                            const int32_t* __restrict__ rid, int64_t n,
-                           int fp_bits, int n_reads,
+                           int shift, int n_reads,
                            const Seg* __restrict__ tile_prefix,
                            int32_t* __restrict__ p2, int32_t* __restrict__ p3) {
   const int64_t base =
@@ -132,7 +142,7 @@ __global__ void tile_apply(const uint32_t* __restrict__ key,
   Seg local[kItems];
   Seg acc = identity();
   for (int j = 0; j < kItems; ++j) {
-    local[j] = base + j < n ? element(key, base + j, fp_bits) : identity();
+    local[j] = base + j < n ? element(key, key2, base + j, shift) : identity();
     acc = combine(acc, local[j]);
   }
   Seg total;
@@ -150,6 +160,26 @@ __global__ void tile_apply(const uint32_t* __restrict__ key,
   }
 }
 
+int scan(const void* skey, const void* skey2, const void* srid, int64_t n,
+         int shift, int n_reads, void* tile_scratch, int64_t n_tiles,
+         void* p2, void* p3, int device, void* stream) {
+  int err = nkm_select_device(device);
+  if (err) return err;
+  if (n_tiles != (n + kTile - 1) / kTile) return cudaErrorInvalidValue;
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* key = static_cast<const uint32_t*>(skey);
+  const uint32_t* key2 = static_cast<const uint32_t*>(skey2);
+  Seg* tiles = static_cast<Seg*>(tile_scratch);
+  const unsigned grid = static_cast<unsigned>(n_tiles);
+  tile_reduce<<<grid, kThreads, 0, s>>>(key, key2, n, shift, tiles);
+  tile_scan<<<1, kThreads, 0, s>>>(tiles, n_tiles);
+  tile_apply<<<grid, kThreads, 0, s>>>(
+      key, key2, static_cast<const int32_t*>(srid), n, shift, n_reads, tiles,
+      static_cast<int32_t*>(p2), static_cast<int32_t*>(p3));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // tile_scratch: 4 * n_tiles int32, n_tiles = ceil(n / 2048)
@@ -158,18 +188,18 @@ NKM_EXPORT int nkm_rank_cand_scan(const void* skey, const void* srid,
                                   void* tile_scratch, long long n_tiles,
                                   void* p2, void* p3, int device,
                                   void* stream) {
-  int err = nkm_select_device(device);
-  if (err) return err;
-  if (n_tiles != (n + kTile - 1) / kTile) return cudaErrorInvalidValue;
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* key = static_cast<const uint32_t*>(skey);
-  Seg* tiles = static_cast<Seg*>(tile_scratch);
-  const unsigned grid = static_cast<unsigned>(n_tiles);
-  tile_reduce<<<grid, kThreads, 0, s>>>(key, n, fp_bits, tiles);
-  tile_scan<<<1, kThreads, 0, s>>>(tiles, n_tiles);
-  tile_apply<<<grid, kThreads, 0, s>>>(
-      key, static_cast<const int32_t*>(srid), n, fp_bits, n_reads, tiles,
-      static_cast<int32_t*>(p2), static_cast<int32_t*>(p3));
-  return static_cast<int>(cudaGetLastError());
+  return scan(skey, nullptr, srid, n, fp_bits, n_reads, tile_scratch,
+              n_tiles, p2, p3, device, stream);
+}
+
+// the wide scan: skey2 is the second sort word, row = skey >> row_shift
+NKM_EXPORT int nkm_rank_cand_scan_wide(const void* skey, const void* skey2,
+                                       const void* srid, long long n,
+                                       int row_shift, int n_reads,
+                                       void* tile_scratch, long long n_tiles,
+                                       void* p2, void* p3, int device,
+                                       void* stream) {
+  if (skey2 == nullptr) return cudaErrorInvalidValue;
+  return scan(skey, skey2, srid, n, row_shift, n_reads, tile_scratch,
+              n_tiles, p2, p3, device, stream);
 }

@@ -1,10 +1,11 @@
 """The streaming normalization engine on one device.
 
 Port of nomalise_kmers_multi_large_tpu/engine/pipeline.py::Normalizer for
-the k <= 15 bucket path: seed the table(s), open per-shard outputs, stream
-each input file (pair) in record batches through the batch step, and write
-the kept records. ``-p N`` gives N logical shards on the one device, each
-with its own table, outputs and ``depth // N`` threshold.
+the bucket paths (k <= 15, and the wide table at k = 16..31): seed the
+table(s), open per-shard outputs, stream each input file (pair) in record
+batches through the batch step, and write the kept records. ``-p N`` gives
+N logical shards on the one device, each with its own table, outputs and
+``depth // N`` threshold.
 
 CUDA work is asynchronous: a dispatch enqueues the batch step and returns,
 and the previous dispatch retires (keep mask to the host, records written)
@@ -65,9 +66,11 @@ RunReport, ShardCounters = _report.RunReport, _report.ShardCounters
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
-def decode_codes(lo: np.ndarray, k: int) -> list[str]:
-    """k-mer strings of 2-bit codes (first base most significant)."""
-    code = np.asarray(lo).astype(np.uint64)
+def decode_codes(hi: np.ndarray, lo: np.ndarray, k: int) -> list[str]:
+    """k-mer strings of 2-bit codes given as (hi, lo) 32-bit words (first
+    base most significant)."""
+    code = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | \
+        np.asarray(lo).astype(np.uint64)
     out = np.empty((code.shape[0], k), dtype=np.uint8)
     for i in range(k - 1, -1, -1):
         out[:, i] = _BASES[(code & np.uint64(3)).astype(np.int64)]
@@ -80,7 +83,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _copy(state: TableState) -> TableState:
-    return TableState(*(x.clone() for x in state))
+    """A copy of every plane; an absent plane (keys2 = None) stays None."""
+    return TableState(*(None if x is None else x.clone() for x in state))
 
 
 def resolve_device(device) -> torch.device:
@@ -552,17 +556,17 @@ class Normalizer:
         cfg = self.cfg
         path = os.path.join(cfg.out_dir, output_filename(
             "output_kmer_seeds", cfg.ksize, cfg.depth_per_shard, -1, "tsv"))
-        _, lo, _ = self.tables[0].export(self.states[0])
+        hi, lo, _ = self.tables[0].export(self.states[0])
         with open(path, "w") as f:
-            for km in decode_codes(lo, cfg.ksize):
+            for km in decode_codes(hi, lo, cfg.ksize):
                 f.write(f"{km}\t0\n")
 
     def _dump_tables(self):
         cfg = self.cfg
         for s in range(cfg.shards):
-            _, lo, counts = self.tables[s].export(self.states[s])
+            hi, lo, counts = self.tables[s].export(self.states[s])
             path = os.path.join(cfg.out_dir, output_filename(
                 "output_kmer", cfg.ksize, cfg.depth_per_shard, s, "tsv"))
             with open(path, "w") as f:
-                for km, c in zip(decode_codes(lo, cfg.ksize), counts):
+                for km, c in zip(decode_codes(hi, lo, cfg.ksize), counts):
                     f.write(f"{km}\t{c}\n")

@@ -1,10 +1,14 @@
 """The per-batch device step on the bucket path: encode -> count -> classify.
 
 Port of nomalise_kmers_multi_large_tpu/engine/step.py::BatchStep for the
-k <= 15 bucket table in exact mode:
+bucket tables in exact mode. k <= 15:
 
   bases[R, L] --K1 encode--> keys[R, W] --sort (key, read id)--> K3 scan
       --K4 upsert--> high[R], with total[R] = valid windows --> keep[B]
+
+k = 16..31 (BucketTableWide): K2 encode gives the sort words (w1, w2), the
+sort runs on (w1, w2, read id), then K3w and K5; a window is valid iff
+``w2 != -1``. Stride samples both words after the encode kernel.
 
 PyTorch runs eagerly, so there is nothing to compile; ``step_many`` is a
 Python loop that carries the state through G batches, with the same results
@@ -23,7 +27,7 @@ from nomalise_kmers_multi_large_torch.models.diginorm import (
     keep_mask_single,
 )
 from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
-    SENTINEL, encode_keys,
+    SENTINEL, encode_keys, encode_keys_wide,
 )
 from nomalise_kmers_multi_large_torch.table.base import TableState
 from nomalise_kmers_multi_large_torch.table.bucket import BucketTable
@@ -48,7 +52,7 @@ def _on(x, device: torch.device) -> torch.Tensor:
 
 
 class BatchStep:
-    """Batch functions of one table shard (bucket table, exact mode)."""
+    """Batch functions of one table shard (bucket tables, exact mode)."""
 
     def __init__(self, table: BucketTable, *, k: int, depth_per_shard: int,
                  coverage: float, canonical: bool, paired: bool,
@@ -69,12 +73,25 @@ class BatchStep:
         #: of the encoded keys (the same subset as the reference package)
         self.stride = stride
 
-    def _keys(self, bases, lengths) -> torch.Tensor:
-        key = encode_keys(_on(bases, self.device), _on(lengths, self.device),
-                          self.k, self.canonical)
+    def _upsert(self, state: TableState, bases, lengths, seed: bool):
+        """Encode, stride-sample and count one batch. Returns (state', the
+        table's BucketBatchOut, total int32 [R] valid windows per read)."""
+        b, ln = _on(bases, self.device), _on(lengths, self.device)
+        if self.table.wide:
+            words = encode_keys_wide(b, ln, self.k, self.canonical)
+        else:
+            words = (encode_keys(b, ln, self.k, self.canonical),)
         if self.stride > 1:
-            key = key[:, ::self.stride].contiguous()
-        return key
+            words = tuple(w[:, ::self.stride].contiguous() for w in words)
+        if self.table.wide:
+            state, out = self.table.process_batch_keys(
+                state, *words, depth=self.depth, seed=seed)
+        else:
+            state, out = self.table.process_batch_mixed(
+                state, *words, depth=self.depth, seed=seed)
+        # the last word is the validity word: the key, or w2 on the wide path
+        total = (words[-1] != SENTINEL).sum(1, dtype=torch.int32)
+        return state, out, total
 
     # ------------------------------------------------------------------
     def step(self, state: TableState, bases, lengths, rec_valid):
@@ -89,10 +106,7 @@ class BatchStep:
 
         Returns (state', keep bool [B], StepStats, ReadTallies).
         """
-        key = self._keys(bases, lengths)
-        state, out = self.table.process_batch_mixed(state, key,
-                                                    depth=self.depth)
-        total = (key != SENTINEL).sum(1, dtype=torch.int32)
+        state, out, total = self._upsert(state, bases, lengths, seed=False)
         return self._classify(state, out.high_per_read, total,
                               _on(rec_valid, self.device))
 
@@ -132,7 +146,5 @@ class BatchStep:
     def seed_step(self, state: TableState, bases, lengths) -> TableState:
         """Seeding: insert k-mers with count 0. The host pre-filters records
         to the reference's len > k rule by zeroing their lengths."""
-        key = self._keys(bases, lengths)
-        state, _ = self.table.process_batch_mixed(state, key,
-                                                  depth=self.depth, seed=True)
+        state, _, _ = self._upsert(state, bases, lengths, seed=True)
         return state

@@ -1,6 +1,7 @@
-"""Bucket-table upsert + classify for one batch (K4, k <= 15).
+"""Bucket-table upsert + classify for one batch (K4, k <= 15; K5, k = 16..31).
 
-Port of nomalise_kmers_multi_large_tpu/ops/bucket_kernel.py::bucket_batch.
+Port of nomalise_kmers_multi_large_tpu/ops/bucket_kernel.py::bucket_batch
+and ::bucket_batch_wide.
 Data structure (unchanged): a code's mixed key m = mix32(code, 2k) goes to
 bucket row ``m >> fp_bits``; ``fp[row, lane]`` stores the fingerprint
 ``(m & (2^fp_bits - 1)) + 1`` (0 = empty slot) and ``counts[row, lane]`` its
@@ -15,15 +16,27 @@ candidate scan (K3) and then ``bucket_upsert`` (K4), which updates ``fp`` and
 second copy of a table of up to 1 GiB). ``bucket_upsert`` launches the CUDA
 kernel (csrc/bucket.cu) for CUDA tensors and runs ``bucket_upsert_plain``
 for CPU tensors.
+
+The wide table (k = 16..31) keys a code by its Feistel sort words (w1, w2)
+(ops/mix.py feistel_words): row ``w1 >> row_shift``, fingerprint planes
+``fpA = (w1 & (2^row_shift - 1)) + 1`` (0 = empty) and ``fpB = w2`` (no fpB
+at k = 16). ``bucket_batch_wide`` sorts on one int64 key ``(w1 << 30) | w2``
+(a real w2 is < 2^30; the sentinel pair maps to INT64_MAX) with a stable
+sort, so the read id is the sorted position's stream index // windows per
+read; then the wide scan (K3w) and ``bucket_upsert_wide`` (K5,
+csrc/bucket_wide.cu; ``bucket_upsert_wide_plain`` for CPU tensors). Window
+validity is ``w2 != 0xFFFFFFFF``: a sentinel's w1 maps to the real row
+``rows - 1``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from nomalise_kmers_multi_large_torch import backend
+from nomalise_kmers_multi_large_torch.ops.encode_kernel import as_int32
 from nomalise_kmers_multi_large_torch.ops.segscan import rank_cand_scan
 
 _RID_BITS = 14                # read ids per batch < 2^14 = 16384
@@ -34,6 +47,12 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES_WIDE = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_void_p])
+_W2_BITS = 30                 # a real w2 is < 2^30
+_SORT_SENTINEL = (1 << 63) - 1
 
 
 class BucketBatchOut(NamedTuple):
@@ -44,18 +63,18 @@ class BucketBatchOut(NamedTuple):
     inserted: torch.Tensor       # int32 [] slots newly occupied
 
 
-def bucket_upsert_plain(fp, counts, skey, p2, p3, *, fp_bits: int,
-                        depth: int, seed: bool, n_reads: int):
-    """Plain PyTorch version of the kernel, on any device: per-code work on
-    the run heads (rank 1), then multiplicities scattered back. Updates fp
-    and counts in place; returns (high_per_read, stats[dropped, inserted])."""
-    dev = fp.device
-    rows, lanes = fp.shape
-    key = skey.to(torch.int64) & 0xFFFFFFFF
-    row = key >> fp_bits
-    sel = torch.nonzero((key != 0xFFFFFFFF) & (row < rows)).squeeze(1)
+def _upsert_plain(planes, counts, row, fvals, sel, p2, p3, *, depth: int,
+                  seed: bool, n_reads: int):
+    """Plain upsert of the selected (valid) elements of a sorted stream:
+    per-code work on the run heads (rank 1), then multiplicities scattered
+    back. A code matches a slot where every plane equals its value in
+    `fvals`; the first plane is nonzero exactly on occupied slots. Updates
+    the planes and counts in place; returns (high_per_read, stats[dropped,
+    inserted])."""
+    dev = counts.device
+    lanes = counts.shape[1]
     row = row[sel]
-    f = (key[sel] & ((1 << fp_bits) - 1)) + 1
+    fvals = [f[sel] for f in fvals]
     q = p2[sel].to(torch.int64) & 0xFFFFFFFF
     rank, rid = q & 0xFFFF, q >> 16
     cand = p3[sel].to(torch.int64)
@@ -64,10 +83,12 @@ def bucket_upsert_plain(fp, counts, skey, p2, p3, *, fp_bits: int,
     head = rank == 1
     run = torch.cumsum(head, 0) - 1
     hidx = torch.nonzero(head).squeeze(1)
-    h_row, h_f, h_cand = row[hidx], f[hidx], cand[hidx]
+    h_row, h_cand = row[hidx], cand[hidx]
+    h_f = [f[hidx] for f in fvals]
     mult = torch.bincount(run, minlength=hidx.numel())
-    row_fp = fp[h_row]                                  # [H, lanes]
-    eq = row_fp == h_f[:, None].to(fp.dtype)
+    eq = torch.ones((hidx.numel(), lanes), dtype=torch.bool, device=dev)
+    for plane, f in zip(planes, h_f):
+        eq &= plane[h_row] == f[:, None].to(plane.dtype)
     matched = eq.any(1)
     m_lane = eq.to(torch.int8).argmax(1)
     prior = torch.where(matched, counts[h_row, m_lane].to(torch.int64), 0)
@@ -85,7 +106,7 @@ def bucket_upsert_plain(fp, counts, skey, p2, p3, *, fp_bits: int,
     rstart = torch.ones(eidx.numel(), dtype=torch.bool, device=dev)
     rstart[1:] = e_row[1:] != e_row[:-1]
     within = pos - torch.cummax(torch.where(rstart, pos, 0), 0).values
-    occ = (fp[e_row] != 0).sum(1)
+    occ = (planes[0][e_row] != 0).sum(1)
     lane = occ + within
     fits = lane < lanes
     ins = eidx[fits]
@@ -95,12 +116,25 @@ def bucket_upsert_plain(fp, counts, skey, p2, p3, *, fp_bits: int,
         m = torch.nonzero(matched).squeeze(1)
         counts[h_row[m], m_lane[m]] += mult[m].to(counts.dtype)
         counts[i_row, i_lane] += mult[ins].to(counts.dtype)
-    fp[i_row, i_lane] = h_f[ins].to(fp.dtype)
+    for plane, f in zip(planes, h_f):
+        plane[i_row, i_lane] = f[ins].to(plane.dtype)
 
     n_ins = ins.numel()
     stats = torch.tensor([int(new.sum()) - n_ins, n_ins], dtype=torch.int32,
                          device=dev)
     return high, stats
+
+
+def bucket_upsert_plain(fp, counts, skey, p2, p3, *, fp_bits: int,
+                        depth: int, seed: bool, n_reads: int):
+    """Plain PyTorch version of the kernel, on any device. Updates fp and
+    counts in place; returns (high_per_read, stats[dropped, inserted])."""
+    key = skey.to(torch.int64) & 0xFFFFFFFF
+    row = key >> fp_bits
+    sel = torch.nonzero((key != 0xFFFFFFFF) & (row < fp.shape[0])).squeeze(1)
+    f = (key & ((1 << fp_bits) - 1)) + 1
+    return _upsert_plain((fp,), counts, row, (f,), sel, p2, p3, depth=depth,
+                         seed=seed, n_reads=n_reads)
 
 
 def bucket_upsert(fp, counts, skey, p2, p3, *, fp_bits: int, depth: int,
@@ -176,3 +210,125 @@ def bucket_batch(fp, counts, key_flat, rid_flat, *, fp_bits: int,
                                 depth=depth, seed=seed, n_reads=n_reads)
     return BucketBatchOut(fp=fp, counts=counts, high_per_read=high,
                           overflow=stats[0], inserted=stats[1])
+
+
+# ----------------------------------------------------------------------
+# wide table, k = 16..31
+
+class BucketBatchWideOut(NamedTuple):
+    fpA: torch.Tensor            # int32 [rows, lanes] plane A (+1; 0 = empty)
+    fpB: Optional[torch.Tensor]  # int32 [rows, lanes] plane B; None at k = 16
+    counts: torch.Tensor         # int32 [rows, lanes]
+    high_per_read: torch.Tensor  # int32 [n_reads] high windows per read
+    overflow: torch.Tensor       # int32 [] codes dropped (row full / cand >= lanes)
+    inserted: torch.Tensor       # int32 [] slots newly occupied
+
+
+def bucket_upsert_wide_plain(fpA, fpB, counts, sk1, sk2, p2, p3, *,
+                             row_shift: int, depth: int, seed: bool,
+                             n_reads: int):
+    """Plain PyTorch version of the wide kernel, on any device. Updates the
+    planes and counts in place; returns (high_per_read, stats[dropped,
+    inserted])."""
+    w1 = sk1.to(torch.int64) & 0xFFFFFFFF
+    w2 = sk2.to(torch.int64) & 0xFFFFFFFF
+    sel = torch.nonzero(w2 != 0xFFFFFFFF).squeeze(1)
+    f_a = (w1 & ((1 << row_shift) - 1)) + 1
+    planes, fvals = ((fpA,), (f_a,)) if fpB is None else \
+        ((fpA, fpB), (f_a, w2))
+    return _upsert_plain(planes, counts, w1 >> row_shift, fvals, sel, p2, p3,
+                         depth=depth, seed=seed, n_reads=n_reads)
+
+
+def bucket_upsert_wide(fpA, fpB, counts, sk1, sk2, p2, p3, *, row_shift: int,
+                       depth: int, seed: bool, n_reads: int):
+    """Upsert + classify a sorted wide stream into the table (in place).
+
+    Args:
+      fpA, counts: int32 [rows, lanes] planes, updated in place; fpB the
+        same, or None at k = 16.
+      sk1, sk2: int32 [N] sorted sort words (sentinel pair (-1, -1) last);
+        p2, p3: int32 [N] from the wide rank_cand_scan.
+      row_shift: rows = 2^(32 - row_shift), 11..23.
+      depth, seed, n_reads: as bucket_upsert.
+
+    Returns (high_per_read int32 [n_reads], stats int32 [2] = (dropped
+    inserts, inserted slots)).
+    """
+    planes = (fpA, counts) if fpB is None else (fpA, fpB, counts)
+    if any(t.shape != fpA.shape for t in planes) or fpA.dim() != 2:
+        raise ValueError("bucket_upsert_wide: planes must share [rows, lanes]")
+    if not (sk1.shape == sk2.shape == p2.shape == p3.shape
+            and sk1.dim() == 1):
+        raise ValueError("bucket_upsert_wide: sk1, sk2, p2, p3 must be [N]")
+    rows, lanes = fpA.shape
+    if not 11 <= row_shift <= 23 or rows << row_shift != 1 << 32 or \
+            lanes % 32 or lanes > 128:
+        raise ValueError(f"bucket_upsert_wide: planes {tuple(fpA.shape)} "
+                         f"with row_shift {row_shift}: need rows = "
+                         "2^(32 - row_shift) in 2^9..2^21 and lanes a "
+                         "multiple of 32 up to 128")
+    if not 1 <= n_reads <= MAX_READS or depth > 65535:
+        raise ValueError(f"bucket_upsert_wide: n_reads={n_reads} or "
+                         f"depth={depth} out of range")
+    if fpA.device.type == "cpu":
+        return bucket_upsert_wide_plain(
+            fpA, fpB, counts, sk1, sk2, p2, p3, row_shift=row_shift,
+            depth=depth, seed=seed, n_reads=n_reads)
+    backend.require_cuda("bucket_upsert_wide", *planes, sk1, sk2, p2, p3)
+    if any(t.dtype != torch.int32 for t in (*planes, sk1, sk2, p2, p3)):
+        raise TypeError("bucket_upsert_wide: every tensor must be int32")
+    high = torch.zeros(n_reads, dtype=torch.int32, device=fpA.device)
+    stats = torch.zeros(2, dtype=torch.int32, device=fpA.device)
+    fn = backend.function("bucket_batch_wide", "nkm_bucket_batch_wide",
+                          _ARGTYPES_WIDE)
+    backend.launch("bucket_batch_wide", fn, sk1.data_ptr(), sk2.data_ptr(),
+                   p2.data_ptr(), p3.data_ptr(), sk1.numel(), fpA.data_ptr(),
+                   None if fpB is None else fpB.data_ptr(), counts.data_ptr(),
+                   rows, lanes, row_shift, depth, int(seed), high.data_ptr(),
+                   n_reads, stats.data_ptr(), fpA.device.index or 0,
+                   backend.stream_of(fpA))
+    return high, stats
+
+
+def sort_stream_wide(w1_flat: torch.Tensor, w2_flat: torch.Tensor,
+                     windows_per_read: int):
+    """Exact-mode sort of a read-major stream on (w1, w2, read id).
+
+    One int64 key ``(w1 << 30) | w2`` (< 2^62), the sentinel pair mapped to
+    INT64_MAX, sorted stably: equal codes keep stream order, so the sorted
+    position's stream index // windows_per_read is its read id. Returns
+    (sk1, sk2, srid) int32 [N], the sentinel pair back at (-1, -1)."""
+    w1 = w1_flat.to(torch.int64) & 0xFFFFFFFF
+    w2 = w2_flat.to(torch.int64) & 0xFFFFFFFF
+    packed = torch.where(w2 == 0xFFFFFFFF, _SORT_SENTINEL,
+                         (w1 << _W2_BITS) | w2)
+    packed, order = torch.sort(packed, stable=True)
+    sent = packed == _SORT_SENTINEL
+    sk1 = as_int32(torch.where(sent, -1, packed >> _W2_BITS))
+    sk2 = as_int32(torch.where(sent, -1, packed & ((1 << _W2_BITS) - 1)))
+    return sk1, sk2, (order // windows_per_read).to(torch.int32)
+
+
+def bucket_batch_wide(fpA, fpB, counts, w1_flat, w2_flat, *,
+                      windows_per_read: int, row_shift: int, depth: int,
+                      seed: bool = False) -> BucketBatchWideOut:
+    """Run one read-major batch through the wide bucket table: sort, wide
+    scan (K3w), wide upsert (K5). The planes are updated in place.
+
+    Args:
+      fpA, fpB, counts: the table planes (fpB None at k = 16).
+      w1_flat, w2_flat: int32 [N] sort words in stream order, N a multiple
+        of windows_per_read; an invalid window holds (-1, -1).
+      row_shift, depth, seed: as bucket_upsert_wide.
+    """
+    n_reads = w1_flat.numel() // windows_per_read
+    sk1, sk2, srid = sort_stream_wide(w1_flat, w2_flat, windows_per_read)
+    p2, p3 = rank_cand_scan(sk1, srid, fp_bits=0, n_reads=n_reads,
+                            skey2=sk2, row_shift=row_shift)
+    high, stats = bucket_upsert_wide(fpA, fpB, counts, sk1, sk2, p2, p3,
+                                     row_shift=row_shift, depth=depth,
+                                     seed=seed, n_reads=n_reads)
+    return BucketBatchWideOut(fpA=fpA, fpB=fpB, counts=counts,
+                              high_per_read=high, overflow=stats[0],
+                              inserted=stats[1])

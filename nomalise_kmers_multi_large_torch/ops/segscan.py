@@ -1,17 +1,21 @@
-"""Rank / candidate scan over the sorted key stream (K3, narrow keys).
+"""Rank / candidate scan over the sorted key stream (K3 narrow, K3w wide).
 
-Port of nomalise_kmers_multi_large_tpu/ops/segscan.py::rank_cand_scan with
-``wide=False``. For the (key, read id)-sorted stream it returns
+Port of nomalise_kmers_multi_large_tpu/ops/segscan.py::rank_cand_scan. For
+the (code, read id)-sorted stream it returns
 
   p2 = (min(rid, n_reads - 1) << 16) | rank, rank = 1-based position in the
-       run of equal keys, clamped to 65535;
-  p3 = cand, the key's index among the distinct keys of its bucket row
-       (row = key >> fp_bits), clamped to 128.
+       run of equal codes, clamped to 65535;
+  p3 = cand, the code's index among the distinct codes of its bucket row,
+       clamped to 128.
+
+Narrow: the code is ``skey`` and the row ``key >> fp_bits``. Wide (``skey2``
+given, k > 15): the code is the pair (skey, skey2), so it changes when
+either word changes, and the row is ``skey >> row_shift``.
 
 Keys are int32 bit patterns (sentinel -1 = 0xFFFFFFFF, sorted last). The
 stream length needs no padding. ``rank_cand_scan`` launches the CUDA kernel
-(csrc/segscan.cu) for CUDA tensors and runs ``rank_cand_scan_plain`` for CPU
-tensors.
+(csrc/segscan.cu; ``rank_cand_scan_wide`` is its wide entry point) for CUDA
+tensors and runs ``rank_cand_scan_plain`` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -26,17 +30,21 @@ _TILE = 2048  # elements per scan tile; csrc/segscan.cu kTile
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES_WIDE = _ARGTYPES[:1] + [ctypes.c_void_p] + _ARGTYPES[1:]
 
 
 def rank_cand_scan_plain(skey: torch.Tensor, srid: torch.Tensor, *,
-                         fp_bits: int, n_reads: int):
+                         fp_bits: int, n_reads: int, skey2=None,
+                         row_shift: int = -1):
     """Plain PyTorch version of the kernel, on any device."""
     key = skey.to(torch.int64) & 0xFFFFFFFF
     n = key.numel()
     iota = torch.arange(n, device=key.device)
     changed = torch.ones(n, dtype=torch.bool, device=key.device)
     changed[1:] = key[1:] != key[:-1]
-    row = key >> fp_bits
+    if skey2 is not None:
+        changed[1:] |= skey2[1:] != skey2[:-1]
+    row = key >> (fp_bits if skey2 is None else row_shift)
     rchanged = torch.ones_like(changed)
     rchanged[1:] = row[1:] != row[:-1]
     head = torch.cummax(torch.where(changed, iota, 0), 0).values
@@ -49,35 +57,46 @@ def rank_cand_scan_plain(skey: torch.Tensor, srid: torch.Tensor, *,
 
 
 def rank_cand_scan(skey: torch.Tensor, srid: torch.Tensor, *, fp_bits: int,
-                   n_reads: int):
+                   n_reads: int, skey2=None, row_shift: int = -1):
     """(p2, p3) int32 [N] for the bucket kernel.
 
     Args:
-      skey: int32 [N] keys sorted as uint32 (sentinel -1 last).
+      skey: int32 [N] keys sorted as uint32 (sentinel -1 last); the first
+        sort word on the wide path.
       srid: int32 [N] read id of each sorted element.
-      fp_bits: fingerprint bits; the bucket row is ``key >> fp_bits``.
+      fp_bits: fingerprint bits; the narrow bucket row is ``key >> fp_bits``
+        (unused on the wide path).
       n_reads: reads in the batch (read ids clamp to n_reads - 1).
+      skey2: int32 [N] second sort word (wide path, k > 15), or None.
+      row_shift: the wide bucket row is ``skey >> row_shift``, 11..23.
     """
-    if skey.dim() != 1 or srid.shape != skey.shape:
-        raise ValueError("rank_cand_scan: skey and srid must be [N]")
-    if not 1 <= fp_bits <= 16 or not 1 <= n_reads <= 16384:
-        raise ValueError(f"rank_cand_scan: fp_bits={fp_bits}, "
-                         f"n_reads={n_reads} out of range")
+    wide = skey2 is not None
+    shift, lo, hi = (row_shift, 11, 23) if wide else (fp_bits, 1, 16)
+    if skey.dim() != 1 or srid.shape != skey.shape or \
+            (wide and skey2.shape != skey.shape):
+        raise ValueError("rank_cand_scan: skey, skey2 and srid must be [N]")
+    if not lo <= shift <= hi or not 1 <= n_reads <= 16384:
+        raise ValueError(f"rank_cand_scan: row shift {shift} (not in "
+                         f"{lo}..{hi}) or n_reads={n_reads} out of range")
     if skey.device.type == "cpu":
         return rank_cand_scan_plain(skey, srid, fp_bits=fp_bits,
-                                    n_reads=n_reads)
-    backend.require_cuda("rank_cand_scan", skey, srid)
-    if skey.dtype != torch.int32 or srid.dtype != torch.int32:
-        raise TypeError("rank_cand_scan: skey and srid must be int32")
+                                    n_reads=n_reads, skey2=skey2,
+                                    row_shift=row_shift)
+    words = (skey, skey2) if wide else (skey,)
+    backend.require_cuda("rank_cand_scan", *words, srid)
+    if any(t.dtype != torch.int32 for t in (*words, srid)):
+        raise TypeError("rank_cand_scan: skey, skey2 and srid must be int32")
     n = skey.numel()
     n_tiles = -(-n // _TILE)
     p2 = torch.empty_like(skey)
     p3 = torch.empty_like(skey)
     tiles = torch.empty((max(n_tiles, 1), 4), dtype=torch.int32,
                         device=skey.device)
-    fn = backend.function("rank_cand_scan", "nkm_rank_cand_scan", _ARGTYPES)
-    backend.launch("rank_cand_scan", fn, skey.data_ptr(), srid.data_ptr(), n,
-                   fp_bits, n_reads, tiles.data_ptr(), n_tiles,
+    name = "rank_cand_scan_wide" if wide else "rank_cand_scan"
+    fn = backend.function(name, "nkm_" + name,
+                          _ARGTYPES_WIDE if wide else _ARGTYPES)
+    backend.launch(name, fn, *(t.data_ptr() for t in words), srid.data_ptr(),
+                   n, shift, n_reads, tiles.data_ptr(), n_tiles,
                    p2.data_ptr(), p3.data_ptr(), skey.device.index or 0,
                    backend.stream_of(skey))
     return p2, p3

@@ -1,13 +1,16 @@
-"""Bucket count table on torch tensors (k <= 15).
+"""Bucket count tables on torch tensors (k <= 15, and k = 16..31).
 
-Port of nomalise_kmers_multi_large_tpu/table/bucket.py::BucketTable. Codes
-live in lane-wide bucket rows (64 slots by default) addressed by the
-bijective mix of ops/mix.py; one batch goes through ops/bucket_kernel.py
-(sort, rank/cand scan, upsert kernel), which updates the planes in place.
+Port of nomalise_kmers_multi_large_tpu/table/bucket.py::BucketTable and
+::BucketTableWide. Codes live in lane-wide bucket rows (64 slots by default)
+addressed by the bijective mixes of ops/mix.py; one batch goes through
+ops/bucket_kernel.py (sort, rank/cand scan, upsert kernel), which updates
+the planes in place.
 
 State mapping onto TableState:
   counts   -> int32 [rows, lanes] slot counts
-  keys     -> int32 [rows, lanes] fingerprint+1 (0 = empty slot)
+  keys     -> int32 [rows, lanes] fingerprint+1 (0 = empty slot); on the
+              wide table (w1 & (2^row_shift - 1)) + 1
+  keys2    -> wide table at k > 16 only: int32 [rows, lanes] w2
   used     -> int32 [] occupied slots, kept live from the kernel's inserts
   overflow -> int32 [] dropped inserts (a full row); nonzero => grow
 """
@@ -19,9 +22,9 @@ import numpy as np
 import torch
 
 from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
-    BucketBatchOut, bucket_batch,
+    BucketBatchOut, bucket_batch, bucket_batch_wide,
 )
-from nomalise_kmers_multi_large_torch.ops.mix import unmix32_np
+from nomalise_kmers_multi_large_torch.ops.mix import unfeistel_np, unmix32_np
 from nomalise_kmers_multi_large_torch.table.base import TableState
 
 #: default slots per bucket row
@@ -45,31 +48,36 @@ def default_rows(k: int, memory_bytes: Optional[int] = None) -> int:
     return min(max(rows, floor), ceiling)
 
 
-def _split_rows(keys: torch.Tensor, counts: torch.Tensor, fb: int):
+def _split_rows(keys: torch.Tensor, counts: torch.Tensor, fb: int,
+                keys2: Optional[torch.Tensor] = None):
     """Row-doubling remap: the entry at (r, fp) moves to row 2r + top_bit(fp)
     with that bit stripped from its fingerprint; each old row splits into two
-    left-packed new rows, entries in their old lane order."""
+    left-packed new rows, entries in their old lane order. `keys2` (the wide
+    table's second plane) follows the same lane permutation unchanged.
+    Returns (keys, counts, keys2) of 2 * rows rows."""
     rows, lanes = keys.shape
     occ = keys != 0
     top = ((keys - 1) >> (fb - 1)) & 1
     stripped = torch.where(occ, ((keys - 1) & ((1 << (fb - 1)) - 1)) + 1, 0)
-    halves_k, halves_c = [], []
+    planes = [stripped, counts] + ([keys2] if keys2 is not None else [])
+    halves = [[] for _ in planes]
     for bit in (0, 1):
         take = occ & (top == bit)
         # lane in the new row; entries that stay out go to a spill column
         dest = torch.where(take, torch.cumsum(take, 1) - 1, lanes)
-        out_k = torch.zeros((rows, lanes + 1), dtype=keys.dtype,
-                            device=keys.device)
-        out_c = torch.zeros_like(out_k)
-        out_k.scatter_(1, dest, torch.where(take, stripped, 0))
-        out_c.scatter_(1, dest, torch.where(take, counts, 0))
-        halves_k.append(out_k[:, :lanes])
-        halves_c.append(out_c[:, :lanes])
-    return (torch.stack(halves_k, 1).reshape(2 * rows, lanes),
-            torch.stack(halves_c, 1).reshape(2 * rows, lanes))
+        for plane, half in zip(planes, halves):
+            out = torch.zeros((rows, lanes + 1), dtype=plane.dtype,
+                              device=plane.device)
+            out.scatter_(1, dest, torch.where(take, plane, 0))
+            half.append(out[:, :lanes])
+    out = [torch.stack(h, 1).reshape(2 * rows, lanes) for h in halves]
+    return out[0], out[1], out[2] if keys2 is not None else None
 
 
 class BucketTable:
+    #: True on the k > 15 table: two sort words, two fingerprint planes
+    wide = False
+
     def __init__(self, k: int, rows: Optional[int] = None,
                  lanes: int = DEFAULT_LANES, device="cpu"):
         if not 1 <= k <= 15:
@@ -144,7 +152,7 @@ class BucketTable:
         self._check(state)
         if not self.can_grow or self.fp_bits < 2:
             raise ValueError("table already at 4^k capacity")
-        keys2x, cnt2x = _split_rows(state.keys, state.counts, self.fp_bits)
+        keys2x, cnt2x, _ = _split_rows(state.keys, state.counts, self.fp_bits)
         new = BucketTable(self.k, rows=2 * self.rows, lanes=self.lanes,
                           device=self.device)
         return new, TableState(counts=cnt2x, keys=keys2x, used=state.used,
@@ -168,16 +176,139 @@ class BucketTable:
         return np.zeros_like(codes), codes.astype(np.uint32), vals
 
 
+# ----------------------------------------------------------------------
+# wide table, k = 16..31
+
+def default_rows_wide(k: int, memory_bytes: Optional[int] = None) -> int:
+    """Row count of the wide table, as the reference package picks it: 2^14
+    rows (1M slots at 64 lanes) by default, or as much of a --memory_start
+    budget as fits below 2^20 rows at 8 (k = 16) or 12 bytes per slot."""
+    floor, ceiling = 1 << 14, 1 << 20
+    if memory_bytes is None:
+        return floor
+    bps = 8 if k == 16 else 12
+    rows = floor
+    while rows * DEFAULT_LANES * bps * 2 <= memory_bytes and rows < ceiling:
+        rows *= 2
+    return rows
+
+
+class BucketTableWide(BucketTable):
+    """Exact bucket table for k = 16..31 (codes up to 62 bits).
+
+    The design of BucketTable, with the code mixed by the two-word Feistel
+    of ops/mix.py: row ``w1 >> row_shift``, ``keys`` holds
+    ``(w1 & (2^row_shift - 1)) + 1`` (0 = empty) and ``keys2`` holds w2
+    (absent at k = 16, where w2 is 0)."""
+
+    wide = True
+    #: growth ceiling: 2^21 rows = 134M slots, 1.5 GiB at 64 lanes, k > 16
+    MAX_ROWS = 1 << 21
+
+    def __init__(self, k: int, rows: Optional[int] = None,
+                 lanes: int = DEFAULT_LANES, device="cpu"):
+        if not 16 <= k <= 31:
+            raise ValueError("BucketTableWide supports k = 16..31")
+        self.k = k
+        self.rows = rows or default_rows_wide(k)
+        self.lanes = lanes
+        self.device = torch.device(device)
+        if self.rows & (self.rows - 1) or not 512 <= self.rows <= \
+                self.MAX_ROWS:
+            raise ValueError(f"wide bucket table needs power-of-two rows in "
+                             f"512..{self.MAX_ROWS}, got {self.rows}")
+
+    @property
+    def row_shift(self) -> int:
+        """w1 bits below the row: rows = 2^(32 - row_shift)."""
+        return 32 - (self.rows.bit_length() - 1)
+
+    @property
+    def has_plane_b(self) -> bool:
+        return self.k > 16
+
+    def init(self) -> TableState:
+        st = super().init()
+        return st._replace(keys2=torch.zeros_like(st.keys)
+                           if self.has_plane_b else None)
+
+    def process_batch_keys(self, state: TableState, w1: torch.Tensor,
+                           w2: torch.Tensor, *, depth: int,
+                           seed: bool = False
+                           ) -> tuple[TableState, BucketBatchOut]:
+        """One whole-batch upsert + classify. `w1`, `w2` are int32 [R, W]
+        Feistel sort words in stream order (encode_keys_wide output; the
+        pair (-1, -1) marks an invalid window). The planes of `state` are
+        updated in place; the returned state shares them."""
+        self._check(state)
+        R, W = w1.shape
+        out = bucket_batch_wide(state.keys, state.keys2, state.counts,
+                                w1.reshape(R * W), w2.reshape(R * W),
+                                windows_per_read=W, row_shift=self.row_shift,
+                                depth=depth, seed=seed)
+        new_state = TableState(
+            counts=out.counts, keys=out.fpA,
+            used=state.used + out.inserted,
+            overflow=state.overflow + out.overflow, keys2=out.fpB,
+        )
+        return new_state, BucketBatchOut(
+            fp=out.fpA, counts=out.counts, high_per_read=out.high_per_read,
+            overflow=out.overflow, inserted=out.inserted)
+
+    def process_batch_mixed(self, *a, **kw):
+        raise NotImplementedError("the wide table takes Feistel word pairs "
+                                  "(process_batch_keys)")
+
+    @property
+    def can_grow(self) -> bool:
+        return self.rows < self.MAX_ROWS
+
+    def grown(self, state: TableState
+              ) -> tuple["BucketTableWide", TableState]:
+        """Double the rows: the top bit of plane A's fingerprint picks the
+        new row, and plane B follows the lane permutation unchanged. The
+        state must belong to this descriptor."""
+        self._check(state)
+        if not self.can_grow:
+            raise ValueError(f"wide table already at {self.MAX_ROWS} rows")
+        keys2x, cnt2x, b2x = _split_rows(state.keys, state.counts,
+                                         self.row_shift, state.keys2)
+        new = BucketTableWide(self.k, rows=2 * self.rows, lanes=self.lanes,
+                              device=self.device)
+        return new, TableState(counts=cnt2x, keys=keys2x, used=state.used,
+                               overflow=state.overflow, keys2=b2x)
+
+    def export(self, state: TableState):
+        """(hi, lo, count) of occupied slots in ascending code order."""
+        fp = state.keys.cpu().numpy()
+        cnt = state.counts.cpu().numpy()
+        occ_r, occ_l = np.nonzero(fp)
+        w1 = (occ_r.astype(np.uint32) << np.uint32(self.row_shift)) | \
+            (fp[occ_r, occ_l].astype(np.uint32) - 1)
+        w2 = (state.keys2.cpu().numpy()[occ_r, occ_l].astype(np.uint32)
+              if state.keys2 is not None else np.zeros_like(w1))
+        codes = unfeistel_np(w1, w2, 2 * self.k)
+        vals = cnt[occ_r, occ_l].astype(np.int32)
+        order = np.argsort(codes, kind="stable")
+        codes, vals = codes[order], vals[order]
+        return ((codes >> np.uint64(32)).astype(np.uint32),
+                (codes & np.uint64(0xFFFFFFFF)).astype(np.uint32), vals)
+
+
 def state_from_numpy(st, device="cpu") -> TableState:
     """Port state from a table state of numpy arrays (for example a JAX
-    TableState passed through np.asarray field by field)."""
+    TableState passed through np.asarray field by field); a None plane
+    stays None."""
     def t(x):
+        if x is None:
+            return None
         return torch.from_numpy(np.array(x, dtype=np.int32)).to(device)
 
-    return TableState(counts=t(st.counts), keys=t(st.keys), used=t(st.used),
-                      overflow=t(st.overflow))
+    return TableState(*(t(x) for x in st))
 
 
 def state_to_numpy(state: TableState) -> TableState:
-    """The same state with every field as a numpy array on the host."""
-    return TableState(*(x.cpu().numpy() for x in state))
+    """The same state with every field as a numpy array on the host; a
+    None plane stays None."""
+    return TableState(*(None if x is None else x.cpu().numpy()
+                        for x in state))

@@ -12,15 +12,19 @@ import pytest
 import torch
 
 from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
-    bucket_upsert, bucket_upsert_plain, sort_stream,
+    bucket_upsert, bucket_upsert_plain, bucket_upsert_wide,
+    bucket_upsert_wide_plain, sort_stream, sort_stream_wide,
 )
 from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
-    encode_keys, encode_keys_plain,
+    encode_keys, encode_keys_plain, encode_keys_wide, encode_keys_wide_plain,
 )
+from nomalise_kmers_multi_large_torch.ops.mix import feistel_words_np
 from nomalise_kmers_multi_large_torch.ops.segscan import (
     rank_cand_scan, rank_cand_scan_plain,
 )
-from nomalise_kmers_multi_large_torch.table.bucket import BucketTable
+from nomalise_kmers_multi_large_torch.table.bucket import (
+    BucketTable, BucketTableWide,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +105,117 @@ def test_bucket_kernel_matches_plain(dev, lanes, seed):
     assert torch.equal(state.keys, fp2) and torch.equal(state.counts, c2)
     assert torch.equal(high, phigh) and torch.equal(stats, pstats)
     assert int(stats[0]) > 0 and int(stats[1]) > 0
+
+
+# ----------------------------------------------------------------------
+# wide kernels (k = 16..31): K2, K3w, K5
+
+@pytest.mark.parametrize("k", [16, 25, 31])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_encode_wide_kernel_matches_plain(dev, k, canonical):
+    bases, lengths = _reads(np.random.default_rng(k), 1000, 150)
+    bases[3] = 0
+    bases[4] = 3
+    lengths[5] = k - 1
+    b, ln = torch.from_numpy(bases).to(dev), torch.from_numpy(lengths).to(dev)
+    got = encode_keys_wide(b, ln, k, canonical)
+    want = encode_keys_wide_plain(b, ln, k, canonical)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1][3] == -1).all() and (got[1][5] == -1).all()
+
+
+def _wide_stream(dev, k, n=300_000, seed=0):
+    """Sorted wide stream: codes from a pool (long runs, some crossing scan
+    tiles), one run of 70,000, codes sharing w1 with other w2, sentinels."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 1 << (2 * k), size=20_000, dtype=np.uint64)
+    codes = np.concatenate([pool[rng.integers(0, pool.size, size=n)],
+                            np.full(70_000, pool[0], np.uint64)])
+    w1, w2 = feistel_words_np(codes, 2 * k)
+    if k > 16:  # same w1, another w2: a new code in the same run of w1
+        w2[: n // 10] ^= np.uint32(1)
+    w1 = np.concatenate([w1, np.full(5000, 0xFFFFFFFF, np.uint32)])
+    w2 = np.concatenate([w2, np.full(5000, 0xFFFFFFFF, np.uint32)])
+    t = [torch.from_numpy(x.view(np.int32)).to(dev) for x in (w1, w2)]
+    return sort_stream_wide(*t, 150)
+
+
+@pytest.mark.parametrize("k", [16, 25, 31])
+def test_scan_wide_kernel_matches_plain(dev, k):
+    sk1, sk2, srid = _wide_stream(dev, k)
+    n_reads = int(srid.max()) + 1
+    for row_shift in (11, 17, 23):
+        kw = dict(fp_bits=0, n_reads=n_reads, skey2=sk2, row_shift=row_shift)
+        got = rank_cand_scan(sk1, srid, **kw)
+        want = rank_cand_scan_plain(sk1, srid, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _wide_batches(dev, table, rng, n_batches=3):
+    out = []
+    for _ in range(n_batches):
+        bases, lengths = _reads(rng, 1024, 100)
+        w1, w2 = encode_keys_wide(torch.from_numpy(bases).to(dev),
+                                  torch.from_numpy(lengths).to(dev),
+                                  table.k, False)
+        sk1, sk2, srid = sort_stream_wide(w1.reshape(-1), w2.reshape(-1),
+                                          w1.shape[1])
+        p2, p3 = rank_cand_scan(sk1, srid, fp_bits=0, n_reads=w1.shape[0],
+                                skey2=sk2, row_shift=table.row_shift)
+        out.append((sk1, sk2, p2, p3, w1.shape[0]))
+    return out
+
+
+def _check_wide_upsert(table, state, stream, seed, depth=4):
+    planes = (state.keys, state.keys2, state.counts)
+    copies = [None if x is None else x.clone() for x in planes]
+    sk1, sk2, p2, p3, n = stream
+    kw = dict(row_shift=table.row_shift, depth=depth, seed=seed, n_reads=n)
+    high, stats = bucket_upsert_wide(*planes, sk1, sk2, p2, p3, **kw)
+    phigh, pstats = bucket_upsert_wide_plain(*copies, sk1, sk2, p2, p3, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(planes, copies):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(high, phigh) and torch.equal(stats, pstats)
+    return stats
+
+
+@pytest.mark.parametrize("k", [16, 25, 31])
+@pytest.mark.parametrize("lanes", [64, 128])
+@pytest.mark.parametrize("seed", [False, True])
+def test_bucket_wide_kernel_matches_plain(dev, k, lanes, seed):
+    """A 512-row table pre-filled by two seed batches, then one batch whose
+    rows partly overflow: planes, tallies and stats equal."""
+    rng = np.random.default_rng(k + lanes + seed)
+    table = BucketTableWide(k, rows=512, lanes=lanes, device=dev)
+    state = table.init()
+    assert (state.keys2 is None) == (k == 16)
+    stream = _wide_batches(dev, table, rng)
+    for s in stream[:2]:
+        _check_wide_upsert(table, state, s, seed=True)
+    stats = _check_wide_upsert(table, state, stream[2], seed=seed)
+    assert int(stats[0]) > 0 and int(stats[1]) > 0
+
+
+@pytest.mark.parametrize("k", [16, 25])
+def test_bucket_wide_kernel_last_row_beside_sentinels(dev, k):
+    """Real codes with w1 = 0xFFFFFFFF and w1 in row rows - 1, followed by
+    sentinel pairs whose w1 maps to the same row: only the real codes
+    count."""
+    table = BucketTableWide(k, rows=1024, device=dev)
+    state = table.init()
+    n_real = 40
+    w1 = np.full(n_real + 60, 0xFFFFFFFF, np.uint32)
+    w1[: n_real // 2] = 0xFFFFFFFF - np.arange(n_real // 2, dtype=np.uint32)
+    w2 = np.full(n_real + 60, 0xFFFFFFFF, np.uint32)
+    w2[:n_real] = 0 if k == 16 else np.arange(n_real) % 7
+    t = [torch.from_numpy(x.view(np.int32)).to(dev) for x in (w1, w2)]
+    sk1, sk2, srid = sort_stream_wide(*t, 10)
+    p2, p3 = rank_cand_scan(sk1, srid, fp_bits=0, n_reads=10, skey2=sk2,
+                            row_shift=table.row_shift)
+    stats = _check_wide_upsert(table, state, (sk1, sk2, p2, p3, 10),
+                               seed=False, depth=2)
+    assert int(stats[1]) == int((state.keys[-1] != 0).sum()) > 0
+    assert int(state.counts.sum()) == n_real

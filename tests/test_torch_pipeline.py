@@ -97,7 +97,7 @@ def test_growth_between_dispatch_and_overflowing_retire(tmp_path, capsys):
 @pytest.mark.parametrize("changes,ok", [
     (dict(), True),
     (dict(ksize=13, depth=200000, shards=2), False),   # depth/shard > 65535
-    (dict(ksize=21), False),
+    (dict(ksize=21, mode="relaxed"), False),            # wide, relaxed
     (dict(table="direct"), False),
     (dict(mode="relaxed"), False),
     (dict(checkpoint_every=5), False),
