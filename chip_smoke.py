@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py        (from the root of a checkout; one card)
+    python3 chip_smoke.py [--profile]   (from the root of a checkout; one card)
 
 Phases, each of which fails the run on error:
 
@@ -10,10 +10,16 @@ Phases, each of which fails the run on error:
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (8192 read pairs = 16384 reads x 150 bp, a table of 2^21
    rows pre-filled by a seed pass): exact equality, and each one's time
-   beside the plain version's (CUDA events, mean of several launches).
+   beside the plain version's (CUDA events, mean of several launches) and
+   its bound: the bytes its work needs over 3.35 TB/s. The bucket kernels'
+   bytes depend on the data and are counted on the card from the batch
+   (touched rows, their occupied lanes, matched and inserted codes).
    The k <= 15 kernels (K1, K3, K4) at k = 15; the wide kernels (K2, K3w,
    K5) timed at k = 25, and checked for equality at k = 16 (no plane B)
-   and k = 31 on a 2^18-row table.
+   and k = 31 on a 2^18-row table. K4 and K5 are checked and timed twice:
+   after a 4-batch seed pass (~3 lanes per row) and again after fresh
+   batches fill at least 40M slots (~19 lanes per row, near the end of
+   phase 4's stream).
 3. Golden parity: the port's CLI on tests/data/{a1,b1}.fasta -t fa -o fa
    -d 4 --device cuda is byte-identical to tests/golden/fasta_in_paired_k15
    at -k 15 and to tests/golden/fasta_in_paired_k25_jax (made by the JAX
@@ -28,6 +34,12 @@ Phases, each of which fails the run on error:
    byte-identical.
 5. The wide path on the same files at -k 25 (otherwise as phase 4): the
    same checks, and the table must have grown from its 2^14 rows.
+6. Only with --profile: phases 4 and 5 again on the same files, each one
+   whole run under torch.profiler (CPU and CUDA activities), whose totals
+   must equal theirs. For each it prints the wall time, the device busy
+   time (the union of the intervals of device events), the idle share and
+   the device time by kernel or copy name (the 15 largest). The profiler
+   slows the host, so an idle share from this phase is an upper bound.
 
 Standard output ends with one JSON line of per-kernel results, then
 {"ok": true, "device": {...}} as the last line. Without CUDA, or outside a
@@ -35,6 +47,9 @@ checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
+import collections
+import itertools
 import json
 import os
 import shutil
@@ -52,6 +67,9 @@ PAIRS = 1_000_000         # phase 4 read pairs
 CHECK_PAIRS = 20_000      # phase 4 pairs also run on the CPU plain path
 BATCH_READS = 16384       # phase 2 batch: 8192 pairs, the CLI default
 TABLE_ROWS = 1 << 21      # phase 2 table: the size phase 4 grows to
+FULL_FILL_SLOTS = 40_000_000  # phase 2's fuller fill (phase 4 ends at 43.7M)
+MAX_FILL_BATCHES = 200
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 
 REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
     "encode_keys": "nomalise_kmers_multi_large_tpu/ops/encode_kernel.py:289",
@@ -163,28 +181,120 @@ def max_abs_err(pairs) -> int:
     return err
 
 
-def read_batches(rng, dev, n_batches: int):
-    """n_batches of BATCH_READS x 150 bp synthetic reads (mates
-    interleaved, as the engine packs pairs), on the card."""
-    reads, batches = BATCH_READS, []
-    for m1, m2 in synth_pairs(rng, n_batches * reads // 2, chunk=reads // 2):
+def batch_stream(rng, dev):
+    """Endless batches of BATCH_READS x 150 bp synthetic reads from one
+    synthetic transcriptome (mates interleaved, as the engine packs pairs),
+    on the card."""
+    reads = BATCH_READS
+    for m1, m2 in synth_pairs(rng, 1 << 40, chunk=reads // 2):
         b = np.empty((reads, 150), np.uint8)
         b[0::2], b[1::2] = m1, m2
-        batches.append(torch.from_numpy(b).to(dev))
-    return batches
+        yield torch.from_numpy(b).to(dev)
+
+
+def read_batches(rng, dev, n_batches: int):
+    """The first n_batches of batch_stream (the same draws from rng as a
+    synth_pairs call for n_batches batches)."""
+    return list(itertools.islice(batch_stream(rng, dev), n_batches))
 
 
 def report(out: dict, label: str):
     for name, r in out.items():
         print(f"{label}: {name}: max_abs_err {r['max_abs_err']}, kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['work_bytes']:,} bytes), share "
+              f"{r['share']:.3f}")
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
 
 
+def timed(fn, plain, work_bytes: int, err: int, setup=None) -> dict:
+    """A kernel's row of the kernels line: its time and its plain version's
+    on the same inputs, and its bound, the bytes its work needs (each input
+    read once, each output written once) over the card's memory rate."""
+    ms = time_ms(fn, setup=setup)
+    bound = work_bytes / HBM_BYTES_PER_MS
+    return dict(max_abs_err=err, ms=ms,
+                plain_ms=time_ms(plain, setup=setup, iters=3),
+                bound_ms=bound, bound_by="bytes", share=bound / ms,
+                library_ms=None, work_bytes=work_bytes)
+
+
+def upsert_work(rows, codes, fp_planes, stats, n_elems: int,
+                stream_words: int, n_reads: int) -> tuple[int, str]:
+    """Bytes a count-mode upsert of one batch needs, from its data: the
+    stream words in and the per-read tallies out; the occupied fingerprint
+    lanes of each distinct touched row (pre-batch planes); one count read
+    per matched code and one count written per matched or inserted code;
+    the fingerprint planes of the inserts. `rows`, `codes`: the row and code
+    of every valid element; `stats`: the kernel's (dropped, inserted)."""
+    touched = torch.unique(rows)
+    occupied = int((fp_planes[0][touched] != 0).sum())
+    distinct = int(torch.unique(codes).numel())
+    dropped, inserted = int(stats[0]), int(stats[1])
+    matched = distinct - dropped - inserted
+    n_fp = len(fp_planes)
+    total = (4 * stream_words * n_elems + 4 * n_reads
+             + 4 * n_fp * occupied + 4 * (2 * matched + inserted)
+             + 4 * n_fp * inserted)
+    return total, (f"{touched.numel():,} rows touched, {occupied:,} occupied "
+                   f"lanes in them, {distinct:,} distinct codes ({matched:,} "
+                   f"matched, {inserted:,} inserted, {dropped:,} dropped)")
+
+
+def check_and_time_upsert(label, planes, kernel, plain, work) -> dict:
+    """An upsert kernel against its plain version in seed and count mode
+    (planes and outputs equal), then both timed in count mode from the same
+    starting planes. planes: the tensors the upsert updates in place (None
+    for an absent plane); kernel(planes, seed) and plain(planes, seed)
+    return (high, stats); work(start_planes, stats) -> (bytes, detail)."""
+    start = [None if x is None else x.clone() for x in planes]
+    twins = [None if x is None else x.clone() for x in planes]
+
+    def reset():
+        for t, src in zip(planes + twins, start + start):
+            if t is not None:
+                t.copy_(src)
+
+    errs = []
+    for seed in (True, False):
+        reset()
+        got = kernel(planes, seed)
+        want = plain(twins, seed)
+        errs.append(max_abs_err([
+            *((a, b) for a, b in zip(planes, twins) if a is not None),
+            *zip(got, want)]))
+    nbytes, detail = work(start, got[1])
+    print(f"{label}: inserted {int(got[1][1]):,}, dropped "
+          f"{int(got[1][0]):,}, high windows {int(got[0].sum()):,}; "
+          f"work: {detail}")
+    out = timed(lambda: kernel(planes, False), lambda: plain(planes, False),
+                nbytes, max(errs), setup=reset)
+    del start, twins
+    return out
+
+
+def fill_table(planes, seed_batch, batches, label: str) -> int:
+    """Seed fresh batches into the table until FULL_FILL_SLOTS slots are
+    filled; returns the slots filled."""
+    filled = int((planes[0] != 0).sum())
+    n = 0
+    while filled < FULL_FILL_SLOTS:
+        if n == MAX_FILL_BATCHES:
+            raise AssertionError(f"{label}: {filled:,} slots after {n} "
+                                 "fill batches")
+        seed_batch(next(batches))
+        n += 1
+        filled = int((planes[0] != 0).sum())
+    rows, lanes = planes[0].shape
+    print(f"{label}: {n} more seed batches filled {filled:,} slots "
+          f"({filled / rows:.1f} lanes per row of {lanes})")
+    return filled
+
+
 def phase_kernels(rng, dev) -> dict:
-    """Each k <= 15 kernel vs its plain version at the main path's
-    shapes."""
+    """Each k <= 15 kernel vs its plain version at the main path's shapes;
+    K4 also at a fuller fill of the same table."""
     from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
         bucket_upsert, bucket_upsert_plain, sort_stream,
     )
@@ -201,6 +311,8 @@ def phase_kernels(rng, dev) -> dict:
     lengths = torch.full((reads,), 150, dtype=torch.int32, device=dev)
     table = BucketTable(k, rows=TABLE_ROWS, device=dev)
     state = table.init()
+    planes = [state.keys, state.counts]
+    kw = dict(fp_bits=table.fp_bits, depth=depth, n_reads=reads)
 
     def stream(bases):
         key = encode_keys(bases, lengths, k, False)
@@ -210,11 +322,12 @@ def phase_kernels(rng, dev) -> dict:
                                 n_reads=reads)
         return key, skey, srid, p2, p3
 
-    for bases in batches[:4]:  # seed pass: fill the table
+    def seed_batch(bases):
         _, skey, _, p2, p3 = stream(bases)
-        bucket_upsert(state.keys, state.counts, skey, p2, p3,
-                      fp_bits=table.fp_bits, depth=depth, seed=True,
-                      n_reads=reads)
+        bucket_upsert(*planes, skey, p2, p3, seed=True, **kw)
+
+    for bases in batches[:4]:  # seed pass: fill the table
+        seed_batch(bases)
     bases = batches[4]
     key, skey, srid, p2, p3 = stream(bases)
     torch.cuda.synchronize()
@@ -224,58 +337,51 @@ def phase_kernels(rng, dev) -> dict:
           f"{reads:,} reads x 150 bp -> {skey.numel():,} windows")
 
     out = {}
+    n = skey.numel()
     err = max_abs_err([(key, encode_keys_plain(bases, lengths, k, False))])
-    out["encode_keys"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: encode_keys(bases, lengths, k, False)),
-        plain_ms=time_ms(lambda: encode_keys_plain(bases, lengths, k, False),
-                         iters=5))
-    kw = dict(fp_bits=table.fp_bits, n_reads=reads)
-    err = max_abs_err(zip(rank_cand_scan(skey, srid, **kw),
-                          rank_cand_scan_plain(skey, srid, **kw)))
-    out["rank_cand_scan"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: rank_cand_scan(skey, srid, **kw)),
-        plain_ms=time_ms(lambda: rank_cand_scan_plain(skey, srid, **kw),
-                         iters=5))
+    out["encode_keys"] = timed(
+        lambda: encode_keys(bases, lengths, k, False),
+        lambda: encode_keys_plain(bases, lengths, k, False),
+        bases.numel() + 4 * reads + 4 * key.numel(), err)
+    skw = dict(fp_bits=table.fp_bits, n_reads=reads)
+    err = max_abs_err(zip(rank_cand_scan(skey, srid, **skw),
+                          rank_cand_scan_plain(skey, srid, **skw)))
+    out["rank_cand_scan"] = timed(
+        lambda: rank_cand_scan(skey, srid, **skw),
+        lambda: rank_cand_scan_plain(skey, srid, **skw), 16 * n, err)
 
-    fp0, c0 = state.keys.clone(), state.counts.clone()
-    fp1, c1 = fp0.clone(), c0.clone()
-    kw = dict(fp_bits=table.fp_bits, depth=depth, n_reads=reads)
-    errs = []
-    for seed in (True, False):
-        for t, src in ((state.keys, fp0), (state.counts, c0),
-                       (fp1, fp0), (c1, c0)):
-            t.copy_(src)
-        got = bucket_upsert(state.keys, state.counts, skey, p2, p3,
-                            seed=seed, **kw)
-        want = bucket_upsert_plain(fp1, c1, skey, p2, p3, seed=seed, **kw)
-        errs.append(max_abs_err([(state.keys, fp1), (state.counts, c1),
-                                 *zip(got, want)]))
-    print(f"phase 2: bucket batch inserted {int(got[1][1]):,}, dropped "
-          f"{int(got[1][0]):,}, high windows {int(got[0].sum()):,}")
+    def bucket_out(skey, p2, p3, label):
+        ukey = skey.to(torch.int64) & 0xFFFFFFFF
+        valid = ukey[(ukey != 0xFFFFFFFF)
+                     & ((ukey >> table.fp_bits) < table.rows)]
+        return check_and_time_upsert(
+            label, planes,
+            lambda pl, seed: bucket_upsert(*pl, skey, p2, p3, seed=seed,
+                                           **kw),
+            lambda pl, seed: bucket_upsert_plain(*pl, skey, p2, p3,
+                                                 seed=seed, **kw),
+            lambda start, stats: upsert_work(
+                valid >> table.fp_bits, valid, start[:1], stats, n, 3,
+                reads))
 
-    def reset():
-        state.keys.copy_(fp0)
-        state.counts.copy_(c0)
-
-    out["bucket_batch"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: bucket_upsert(state.keys, state.counts, skey, p2,
-                                         p3, seed=False, **kw), setup=reset),
-        plain_ms=time_ms(lambda: bucket_upsert_plain(
-            state.keys, state.counts, skey, p2, p3, seed=False, **kw),
-            setup=reset, iters=3))
+    out["bucket_batch"] = bucket_out(skey, p2, p3, "phase 2 (4-batch fill)")
+    # the fuller fill: fresh batches, then one more batch of the same source
+    fill = batch_stream(np.random.default_rng(SEED + 2), dev)
+    slots = fill_table(planes, seed_batch, fill, "phase 2 (fuller fill)")
+    _, skey, _, p2, p3 = stream(next(fill))
+    full = bucket_out(skey, p2, p3, "phase 2 (fuller fill)")
+    out["bucket_batch"]["full_fill"] = dict(slots=slots, **full)
     report(out, "phase 2")
-    del state, fp0, c0, fp1, c1, batches
+    report({"bucket_batch": full}, f"phase 2 (fuller fill, {slots:,} slots)")
+    del state, planes, batches, fill
     torch.cuda.empty_cache()
     return out
 
 
 def phase_kernels_wide(rng, dev) -> dict:
     """K2, K3w and K5 vs their plain versions: timed at k = 25 on a 2^21-row
-    table pre-filled by a 4-batch seed pass; equality only at k = 16 and
-    k = 31 on a 2^18-row table."""
+    table pre-filled by a 4-batch seed pass, K5 also at a fuller fill;
+    equality only at k = 16 and k = 31 on a 2^18-row table."""
     from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
         bucket_upsert_wide, bucket_upsert_wide_plain, sort_stream_wide,
     )
@@ -292,8 +398,8 @@ def phase_kernels_wide(rng, dev) -> dict:
     lengths = torch.full((reads,), 150, dtype=torch.int32, device=dev)
     out = {}
     for k in (25, 16, 31):
-        timed = k == 25
-        table = BucketTableWide(k, rows=TABLE_ROWS if timed else 1 << 18,
+        timed_k = k == 25
+        table = BucketTableWide(k, rows=TABLE_ROWS if timed_k else 1 << 18,
                                 device=dev)
         state = table.init()
         scan_kw = dict(fp_bits=0, n_reads=reads, row_shift=table.row_shift)
@@ -305,73 +411,78 @@ def phase_kernels_wide(rng, dev) -> dict:
             p2, p3 = rank_cand_scan(sk1, srid, skey2=sk2, **scan_kw)
             return words, (sk1, sk2, srid), (p2, p3)
 
-        planes = (state.keys, state.keys2, state.counts)
+        planes = [state.keys, state.keys2, state.counts]
         kw = dict(row_shift=table.row_shift, depth=depth, n_reads=reads)
-        for bases in batches[:4]:  # seed pass: fill the table
+
+        def seed_batch(bases):
             _, (sk1, sk2, _), (p2, p3) = stream(bases)
             bucket_upsert_wide(*planes, sk1, sk2, p2, p3, seed=True, **kw)
+
+        for bases in batches[:4]:  # seed pass: fill the table
+            seed_batch(bases)
         bases = batches[4]
         words, (sk1, sk2, srid), scan = stream(bases)
         torch.cuda.synchronize()
+        n = sk1.numel()
         print(f"phase 2 (k={k}): table {table.rows:,} rows x {table.lanes} "
               f"lanes, {int((state.keys != 0).sum()):,} slots filled by a "
               f"4-batch seed pass; batch {reads:,} reads x 150 bp -> "
-              f"{sk1.numel():,} windows")
+              f"{n:,} windows")
+
+        def bucket_out(sk1, sk2, scan, label):
+            w1 = sk1.to(torch.int64) & 0xFFFFFFFF
+            w2 = sk2.to(torch.int64) & 0xFFFFFFFF
+            ok = w2 != 0xFFFFFFFF
+            w1, w2 = w1[ok], w2[ok]
+            n_fp = 1 if planes[1] is None else 2
+            return check_and_time_upsert(
+                label, planes,
+                lambda pl, seed: bucket_upsert_wide(*pl, sk1, sk2, *scan,
+                                                    seed=seed, **kw),
+                lambda pl, seed: bucket_upsert_wide_plain(
+                    *pl, sk1, sk2, *scan, seed=seed, **kw),
+                lambda start, stats: upsert_work(
+                    w1 >> table.row_shift, (w1 << 32) | w2,
+                    [start[0], start[1]][:n_fp], stats, n, 4, reads))
 
         res = {"encode_keys_wide": max_abs_err(
             zip(words, encode_keys_wide_plain(bases, lengths, k, False)))}
         res["rank_cand_scan_wide"] = max_abs_err(zip(
             scan, rank_cand_scan_plain(sk1, srid, skey2=sk2, **scan_kw)))
-        start = [None if x is None else x.clone() for x in planes]
-        twins = [None if x is None else x.clone() for x in planes]
-
-        def reset():
-            for t, src in zip(planes + tuple(twins), start + start):
-                if t is not None:
-                    t.copy_(src)
-
-        errs = []
-        for seed in (True, False):
-            reset()
-            got = bucket_upsert_wide(*planes, sk1, sk2, *scan, seed=seed,
-                                     **kw)
-            want = bucket_upsert_wide_plain(*twins, sk1, sk2, *scan,
-                                            seed=seed, **kw)
-            errs.append(max_abs_err([
-                *((a, b) for a, b in zip(planes, twins) if a is not None),
-                *zip(got, want)]))
-        res["bucket_batch_wide"] = max(errs)
-        print(f"phase 2 (k={k}): bucket batch inserted {int(got[1][1]):,}, "
-              f"dropped {int(got[1][0]):,}, high windows "
-              f"{int(got[0].sum()):,}; max_abs_err {res}")
+        bucket = bucket_out(sk1, sk2, scan, f"phase 2 (k={k}, 4-batch fill)")
+        res["bucket_batch_wide"] = bucket["max_abs_err"]
+        print(f"phase 2 (k={k}): max_abs_err {res}")
         if any(res.values()):
             raise AssertionError(f"k={k}: a wide kernel disagrees with its "
                                  f"plain version: {res}")
-        if not timed:
+        if not timed_k:
+            del state, planes
+            torch.cuda.empty_cache()
             continue
-        out = {name: dict(max_abs_err=err) for name, err in res.items()}
-        out["encode_keys_wide"].update(
-            ms=time_ms(lambda: encode_keys_wide(bases, lengths, k, False)),
-            plain_ms=time_ms(lambda: encode_keys_wide_plain(
-                bases, lengths, k, False), iters=5))
-        out["rank_cand_scan_wide"].update(
-            ms=time_ms(lambda: rank_cand_scan(sk1, srid, skey2=sk2,
-                                              **scan_kw)),
-            plain_ms=time_ms(lambda: rank_cand_scan_plain(
-                sk1, srid, skey2=sk2, **scan_kw), iters=5))
-        out["bucket_batch_wide"].update(
-            ms=time_ms(lambda: bucket_upsert_wide(
-                *planes, sk1, sk2, *scan, seed=False, **kw), setup=reset),
-            plain_ms=time_ms(lambda: bucket_upsert_wide_plain(
-                *planes, sk1, sk2, *scan, seed=False, **kw), setup=reset,
-                iters=3))
-        w1f, w2f, n_win = (words[0].reshape(-1), words[1].reshape(-1),
-                           words[0].shape[1])
+        w = words[0].shape[1]
+        out["encode_keys_wide"] = timed(
+            lambda: encode_keys_wide(bases, lengths, k, False),
+            lambda: encode_keys_wide_plain(bases, lengths, k, False),
+            bases.numel() + 4 * reads + 8 * reads * w, 0)
+        out["rank_cand_scan_wide"] = timed(
+            lambda: rank_cand_scan(sk1, srid, skey2=sk2, **scan_kw),
+            lambda: rank_cand_scan_plain(sk1, srid, skey2=sk2, **scan_kw),
+            20 * n, 0)
+        out["bucket_batch_wide"] = bucket
+        w1f, w2f = words[0].reshape(-1), words[1].reshape(-1)
         print(f"phase 2 (k=25): sort_stream_wide (torch.sort, not a kernel "
               f"of the port) "
-              f"{time_ms(lambda: sort_stream_wide(w1f, w2f, n_win)):.4f} ms")
+              f"{time_ms(lambda: sort_stream_wide(w1f, w2f, w)):.4f} ms")
+        fill = batch_stream(np.random.default_rng(SEED + 3), dev)
+        slots = fill_table(planes, seed_batch, fill,
+                           "phase 2 (k=25, fuller fill)")
+        _, (sk1, sk2, _), scan = stream(next(fill))
+        full = bucket_out(sk1, sk2, scan, "phase 2 (k=25, fuller fill)")
+        out["bucket_batch_wide"]["full_fill"] = dict(slots=slots, **full)
         report(out, "phase 2 (k=25)")
-        del state, planes, start, twins
+        report({"bucket_batch_wide": full},
+               f"phase 2 (k=25, fuller fill, {slots:,} slots)")
+        del state, planes, fill
         torch.cuda.empty_cache()
     del batches
     torch.cuda.empty_cache()
@@ -416,28 +527,36 @@ def write_inputs(rng):
     return (f1, f2), tuple(sub)
 
 
-def phase_main(dev, k: int, files, check_files, label: str) -> dict:
-    """The engine at -k `k` on the phase-4 files; returns the launches of
-    the run."""
-    from nomalise_kmers_multi_large_torch import backend
+def run_engine(k: int, device, files, sub: str):
+    """Normalizer.run() at -k `k` with the reference defaults on `files`,
+    writing under WORK; returns (normalizer, report, out dir, first rows)."""
     from nomalise_kmers_multi_large_torch.cli import config_from_args
     from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 
-    def run(sub, device, files):
-        out = os.path.join(WORK, f"k{k}_{sub}")
-        cfg, _ = config_from_args(["-f", files[0], "-r", files[1], "-k",
-                                   str(k), "-d", "100", "-g", "0.9", "-p",
-                                   "1", "--batch-reads", "8192", "-e",
-                                   "--out-dir", out])
-        norm = Normalizer(cfg, device)
-        rows0 = norm.tables[0].rows
-        rep = norm.run()
-        return norm, rep, out, rows0
+    out = os.path.join(WORK, f"k{k}_{sub}")
+    cfg, _ = config_from_args(["-f", files[0], "-r", files[1], "-k", str(k),
+                               "-d", "100", "-g", "0.9", "-p", "1",
+                               "--batch-reads", "8192", "-e",
+                               "--out-dir", out])
+    norm = Normalizer(cfg, device)
+    rows0 = norm.tables[0].rows
+    rep = norm.run()
+    return norm, rep, out, rows0
+
+
+def totals(rep) -> tuple[int, int, int]:
+    return rep.total_processed, rep.total_printed, rep.max_total_kmers
+
+
+def phase_main(dev, k: int, files, check_files, label: str):
+    """The engine at -k `k` on the phase-4 files; returns the launches of
+    the run and its totals (processed, printed, distinct k-mers)."""
+    from nomalise_kmers_multi_large_torch import backend
 
     backend.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    norm, rep, out, rows0 = run("main", dev, files)
+    norm, rep, out, rows0 = run_engine(k, dev, files, "main")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = backend.launches()
@@ -473,7 +592,8 @@ def phase_main(dev, k: int, files, check_files, label: str) -> dict:
                              f"{missing}")
 
     # the same engine on the CPU plain path, on the first pairs
-    outs = [run(f"check_{d}", d, check_files)[2] for d in ("cuda", "cpu")]
+    outs = [run_engine(k, d, check_files, f"check_{d}")[2]
+            for d in ("cuda", "cpu")]
     for base in ("output_forward", "output_reverse"):
         name = f"{base}.k{k}_norm100_thread0.fastq"
         a, b = (open(os.path.join(o, name), "rb").read() for o in outs)
@@ -483,10 +603,61 @@ def phase_main(dev, k: int, files, check_files, label: str) -> dict:
           "path outputs byte-identical")
     for o in outs + [out]:
         shutil.rmtree(o)
-    return {n: launches[n] for n in PATH_KERNELS[k]}
+    return {n: launches[n] for n in PATH_KERNELS[k]}, totals(rep)
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def phase_profile(dev, k: int, files, want: tuple, label: str):
+    """One whole run of the engine at -k `k` on the phase-4 files under
+    torch.profiler; its totals must equal `want`, the unprofiled run's."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rep, out, _ = run_engine(k, dev, files, "profile")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    shutil.rmtree(out)
+    if totals(rep) != want:
+        raise AssertionError(f"{label}: profiled totals {totals(rep)} != "
+                             f"the unprofiled run's {want}")
+    events = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError(f"{label}: the profile holds no device events")
+    busy = busy_us([(a, b) for _, a, b in events]) / 1e6
+    print(f"{label}: k={k}: profiled run, totals as unprofiled {want}: wall "
+          f"{wall:.3f} s, device busy {busy:.3f} s, idle "
+          f"{1 - busy / wall:.1%} ({len(events):,} device events)")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for name, a, b in events:
+        by_name[name][0] += b - a
+        by_name[name][1] += 1
+    for name, (us, count) in sorted(by_name.items(),
+                                    key=lambda x: -x[1][0])[:15]:
+        print(f"{label}:   {us / 1e3:9.3f} ms  {count:6d} x "
+              f"{us / 1e3 / count:8.4f} ms  {name[:90]}")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also run phase 6, the device-time profile")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -511,8 +682,13 @@ def main() -> int:
         phase_golden(15, "fasta_in_paired_k15")
         phase_golden(25, "fasta_in_paired_k25_jax")
         files, check_files = write_inputs(rng)
-        launches = phase_main(dev, 15, files, check_files, "phase 4")
-        launches.update(phase_main(dev, 25, files, check_files, "phase 5"))
+        launches, want = {}, {}
+        for k, label in ((15, "phase 4"), (25, "phase 5")):
+            got, want[k] = phase_main(dev, k, files, check_files, label)
+            launches.update(got)
+        if args.profile:
+            for k in (15, 25):
+                phase_profile(dev, k, files, want[k], "phase 6")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card_line())

@@ -2,9 +2,12 @@
 
 ``python -m nomalise_kmers_multi_large_torch.cli [reference flags] --device cuda``
 
-Reuses the reference package's parser (the reference binary's flags plus
-the engine's extensions) and adds ``--device`` (default ``cuda``; a run on
-a machine without CUDA fails rather than moving to the CPU).
+The reference binary's flags (normalise_kmers_multi_large.c :492-518
+print_usage, :543-560 long_options), including the multi-value -f/-r and the
+skip-unreadable-files-with-warning behaviour (:763, :782), plus the engine's
+extensions: the port's copy of nomalise_kmers_multi_large_tpu/cli.py's
+parser. It adds ``--device`` (default ``cuda``; a run on a machine without
+CUDA fails rather than moving to the CPU).
 """
 from __future__ import annotations
 
@@ -12,20 +15,104 @@ import argparse
 import os
 import sys
 
-from nomalise_kmers_multi_large_tpu import VERSION
-from nomalise_kmers_multi_large_tpu.cli import _readable, build_parser as _base
-
+from nomalise_kmers_multi_large_torch import VERSION
 from nomalise_kmers_multi_large_torch.config import (
     Config, ConfigError, port_config,
 )
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = _base()
-    p.prog = "python -m nomalise_kmers_multi_large_torch.cli"
-    p.add_argument("--device", default="cuda",
-                   help="torch device to run on (def. cuda)")
+    p = argparse.ArgumentParser(
+        prog="python -m nomalise_kmers_multi_large_torch.cli",
+        description=(
+            "Digital normalization of FASTQ/FASTA reads on one GPU "
+            "(drop-in capabilities of normalise_kmers_multi_large)"
+        ),
+    )
+    p.add_argument("--forward", "-f", nargs="+", default=[], metavar="FILE",
+                   help="List of forward (read1) sequence files")
+    p.add_argument("--reverse", "-r", nargs="+", default=[], metavar="FILE",
+                   help="List of reverse (read2) sequence files")
+    p.add_argument("--single", "-s", action="store_true",
+                   help="data are single ended; unmatched --forward files are single-end")
+    p.add_argument("--ksize", "-k", type=int, default=15,
+                   help="kmer size (5-31; def. 15)")
+    p.add_argument("--depth", "-d", type=int, default=100,
+                   help="count at which a kmer is tagged high coverage (def. 100)")
+    p.add_argument("--coverage", "-g", type=float, default=0.9,
+                   help="proportion (0-1) of sequence covered by high-coverage kmers "
+                        "before tagging as redundant (def. 0.9)")
+    p.add_argument("--canonical", "-c", action="store_true",
+                   help="merge kmers with their reverse complements")
+    p.add_argument("--filetype", "-t", default="fq", help="input format fq|fa (def. fq)")
+    p.add_argument("--outformat", "-o", default="fq", help="output format fq|fa (def. fq)")
+    p.add_argument("--memory_start", "-m", type=int, default=0,
+                   help="initial table memory in Gb across all shards")
+    p.add_argument("--cpu", "-p", type=int, default=1,
+                   help="number of independent shards (reference: threads)")
+    p.add_argument("--verbose", "-e", action="store_true", help="entertain the user")
+    p.add_argument("--debug", "-b", type=int, default=0, help="annoy the developer")
+    p.add_argument("--print", "-P", dest="print_table", action="store_true",
+                   help="print tab-delimited kmer count tables")
+    p.add_argument("--version", "-v", action="store_true", help="print version and exit")
+
+    ext = p.add_argument_group("engine options")
+    ext.add_argument("--batch-reads", type=int, default=8192,
+                     help="reads (or pairs) per device batch")
+    ext.add_argument("--dispatch-group", type=int, default=1,
+                     help="batches per device dispatch")
+    ext.add_argument("--prefetch", type=int, default=2,
+                     help="host batches framed+packed ahead on a worker "
+                          "thread, overlapping device compute (0 = inline)")
+    ext.add_argument("--io-threads", type=int, default=0,
+                     help="threads in the native frame/pack pool "
+                          "(io/_fastx.c); 0 = all cores")
+    ext.add_argument("--mode", choices=["exact", "relaxed"], default="exact",
+                     help="exact = reference-sequential semantics via sort-based "
+                          "ranks; relaxed = pair-local ranks (batch-order independent)")
+    ext.add_argument(
+        "--table", choices=["auto", "bucket", "direct", "hashed"], default="auto"
+    )
+    ext.add_argument("--out-dir", default=".", help="output directory")
+    ext.add_argument("--stride", type=int, default=1,
+                     help="sample every s-th k-mer window (1 = reference semantics; "
+                          "larger = faster, slightly different decisions; the "
+                          "reference's own proposed optimization)")
+    ext.add_argument("--pair-rule", choices=["and", "avg"], default="and",
+                     help="pair keep rule: per-mate AND (reference) or pooled average")
+    ext.add_argument("--sharding", choices=["local", "global"], default="local",
+                     help="multi-device mode: local per-device tables (Mode A) or a "
+                          "globally sharded exact table (Mode B)")
+    ext.add_argument("--devices", type=int, default=0,
+                     help="number of devices to use (0 = all local devices)")
+    ext.add_argument("--seed-table", default="",
+                     help="TSV of kmers (e.g. a previous -P dump) to use as the "
+                          "seed set instead of scanning input files (the "
+                          "reference's planned feature)")
+    ext.add_argument("--checkpoint-every", type=int, default=0,
+                     help="checkpoint the table + stream position every N batches")
+    ext.add_argument("--checkpoint-dir", default=".checkpoints")
+    ext.add_argument("--resume", action="store_true",
+                     help="resume from the latest checkpoint")
+    ext.add_argument("--spectrum", action="store_true",
+                     help="print a k-mer spectrum report at the end")
+    ext.add_argument("--profile", default="", metavar="DIR",
+                     help="write a device trace to DIR")
+    ext.add_argument("--device", default="cuda",
+                     help="torch device to run on (def. cuda)")
     return p
+
+
+def _readable(files, what: str) -> tuple[str, ...]:
+    """Reference behaviour: unreadable files are skipped with a warning
+    (:763,:782), not fatal."""
+    keep = []
+    for f in files:
+        if os.access(f, os.R_OK):
+            keep.append(f)
+        else:
+            print(f"Warning: cannot read {what} file {f}, skipping", file=sys.stderr)
+    return tuple(keep)
 
 
 def config_from_args(argv=None) -> tuple[Config, str]:

@@ -20,7 +20,6 @@ while the device runs. Around that loop:
 """
 from __future__ import annotations
 
-import importlib.util
 import os
 import sys
 from typing import Optional
@@ -28,40 +27,26 @@ from typing import Optional
 import numpy as np
 import torch
 
-import nomalise_kmers_multi_large_tpu
-from nomalise_kmers_multi_large_tpu.io.pack import pack_batch
-from nomalise_kmers_multi_large_tpu.io.reader import (
+from nomalise_kmers_multi_large_torch.config import Config, port_config
+from nomalise_kmers_multi_large_torch.engine.report import (
+    RunReport,
+    ShardCounters,
+)
+from nomalise_kmers_multi_large_torch.engine.step import BatchStep, StepStats
+from nomalise_kmers_multi_large_torch.io.pack import pack_batch
+from nomalise_kmers_multi_large_torch.io.reader import (
     FastxFile,
     RecordBatch,
     batch_iterator,
     paired_batch_iterator,
 )
-from nomalise_kmers_multi_large_tpu.io.writer import ShardWriter, output_filename
-from nomalise_kmers_multi_large_tpu.utils.prefetch import PrefetchIterator
-from nomalise_kmers_multi_large_tpu.utils.profiling import StageTimer
-
-from nomalise_kmers_multi_large_torch.config import Config, port_config
-from nomalise_kmers_multi_large_torch.engine.step import BatchStep, StepStats
+from nomalise_kmers_multi_large_torch.io.writer import (
+    ShardWriter,
+    output_filename,
+)
 from nomalise_kmers_multi_large_torch.table import TableState, make_table
-
-
-def _reference_module(name: str):
-    """Import a host-only module of the reference package by its file,
-    without its subpackage's __init__ (the reference's engine/__init__.py
-    imports the JAX batch step). A module already imported is reused."""
-    mod = sys.modules.get(name)
-    if mod is None:
-        root = os.path.dirname(nomalise_kmers_multi_large_tpu.__file__)
-        path = os.path.join(root, *name.split(".")[1:]) + ".py"
-        spec = importlib.util.spec_from_file_location(name, path)
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[name] = mod
-        spec.loader.exec_module(mod)
-    return mod
-
-
-_report = _reference_module("nomalise_kmers_multi_large_tpu.engine.report")
-RunReport, ShardCounters = _report.RunReport, _report.ShardCounters
+from nomalise_kmers_multi_large_torch.utils.prefetch import PrefetchIterator
+from nomalise_kmers_multi_large_torch.utils.profiling import StageTimer
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 

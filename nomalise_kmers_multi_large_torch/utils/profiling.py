@@ -1,0 +1,44 @@
+"""Host stage timers for the streaming loop (frame/pack/dispatch/write).
+
+The port's copy of nomalise_kmers_multi_large_tpu/utils/profiling.py::
+StageTimer. Its ``device_trace`` is not copied: it wraps ``jax.profiler``,
+and ``--profile`` is not ported yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+
+
+class StageTimer:
+    """Accumulates wall time per pipeline stage; ~100ns overhead per use."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self.totals: dict[str, float] = defaultdict(float)
+        self.counts: dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def report(self) -> str:
+        if not self.totals:
+            return ""
+        total = sum(self.totals.values())
+        lines = ["--- Host stage timing ---"]
+        for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            lines.append(
+                f"{name}: {t:.3f}s ({t / max(total, 1e-12) * 100:.1f}%), "
+                f"{self.counts[name]} calls, {t / max(self.counts[name], 1) * 1e3:.2f} ms/call"
+            )
+        return "\n".join(lines)

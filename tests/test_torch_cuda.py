@@ -75,36 +75,134 @@ def test_scan_kernel_matches_plain(dev):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("lanes", [64, 128])
-@pytest.mark.parametrize("seed", [False, True])
-def test_bucket_kernel_matches_plain(dev, lanes, seed):
-    """A table pre-filled by two seed batches, then one batch whose rows
-    partly overflow: planes, tallies and stats equal."""
-    rng = np.random.default_rng(lanes + seed)
+def _crafted_rows(rng, rows, lanes, fa_bits, plane_b):
+    """Pre-filled planes and a batch of codes that reach every path of the
+    bucket kernels: rows 0..5 pre-filled to occupancy 0, 31, 32, 33, 64 and
+    `lanes` (others 0..5), each row given a few matched and new codes; row 6
+    one code 70 times and a pre-filled one 40 times (runs longer than 32);
+    row 7 40 new codes (a row across slices, inserts across groups); rows
+    100..163 one new code each (a slice that starts 32 rows). With plane B,
+    two slots of a row share fpA. Returns (fpA, fpB or None, counts) and the
+    codes' (row, fa, fb) per element, unsorted."""
+    occ = rng.integers(0, 6, size=rows)
+    occ[:6] = np.minimum([0, 31, 32, 33, 64, lanes], lanes)
+    fpa = np.zeros((rows, lanes), np.int64)
+    fpb = np.zeros((rows, lanes), np.int64)
+    counts = rng.integers(0, 6, size=(rows, lanes)) * (
+        np.arange(lanes)[None, :] < occ[:, None])
+    for r in range(rows):
+        fa = rng.permutation(np.unique(rng.integers(
+            1, (1 << fa_bits) + 1, size=3 * lanes)))[:occ[r]]
+        if plane_b and occ[r] > 1:
+            fa[1] = fa[0]  # same fpA, another fpB
+        fpa[r, :occ[r]] = fa
+        if plane_b:
+            fpb[r, :occ[r]] = rng.integers(0, 1 << 30, size=occ[r])
+
+    def new_code(r, same_fa=False):
+        """A code not in row r; with same_fa (plane B only), one that shares
+        fpA with lanes 0 and 1 but not their fpB."""
+        while True:
+            fa = int(rng.integers(1, (1 << fa_bits) + 1))
+            fb = int(rng.integers(0, 1 << 30)) if plane_b else 0
+            if same_fa and plane_b and occ[r]:
+                if fb not in fpb[r, :2]:
+                    return int(fpa[r, 0]), fb
+            elif fa not in fpa[r, :occ[r]]:
+                return fa, fb
+
+    codes = []  # (row, fa, fb, multiplicity)
+    for r in range(rows):
+        if 100 <= r < 164:
+            codes.append((r, *new_code(r), 1))
+            continue
+        if r == 6:
+            codes.append((r, *new_code(r), 70))
+            if occ[r]:
+                codes.append((r, fpa[r, 0], fpb[r, 0], 40))
+            continue
+        if r == 7:
+            codes += [(r, *new_code(r), 1) for _ in range(40)]
+            continue
+        picks = rng.permutation(occ[r])[:rng.integers(0, 4)].tolist()
+        if occ[r] > 32:
+            picks.append(32)  # a code past the first 32 lanes
+        codes += [(r, fpa[r, j], fpb[r, j], int(rng.integers(1, 4)))
+                  for j in set(picks)]
+        codes += [(r, *new_code(r, same_fa=i == 0), int(rng.integers(1, 4)))
+                  for i in range(int(rng.integers(0, 4)) + (r < 6))]
+    elems = np.array([c[:3] for c in codes for _ in range(c[3])], np.int64)
+    elems = elems[rng.permutation(len(elems))]
+    planes = (fpa, fpb if plane_b else None, counts)
+    return planes, elems
+
+
+def _to_dev(dev, *arrays):
+    return [None if x is None else
+            torch.from_numpy(np.ascontiguousarray(x).astype(np.int64)
+                             .astype(np.uint32).view(np.int32)).to(dev)
+            for x in arrays]
+
+
+def _narrow_stream(dev, case, lanes, rng):
+    """(fp, counts, skey, p2, p3, n_reads, fp_bits) on the card: a k = 11
+    table of 256 rows pre-filled by two seed batches and a third batch
+    ("batches"), or the crafted rows and codes of _crafted_rows."""
     table = BucketTable(11, rows=256, lanes=lanes, device=dev)
     state = table.init()
-    stream = []
-    for _ in range(3):
-        bases, lengths = _reads(rng, 512, 100)
-        key = encode_keys(torch.from_numpy(bases).to(dev),
-                          torch.from_numpy(lengths).to(dev), 11, False)
-        rid = torch.arange(key.numel(), device=dev) // key.shape[1]
-        skey, srid = sort_stream(key.reshape(-1), rid)
-        p2, p3 = rank_cand_scan(skey, srid, fp_bits=table.fp_bits,
-                                n_reads=key.shape[0])
-        stream.append((skey, p2, p3, key.shape[0]))
-    for skey, p2, p3, n in stream[:2]:
-        bucket_upsert(state.keys, state.counts, skey, p2, p3,
-                      fp_bits=table.fp_bits, depth=4, seed=True, n_reads=n)
-    skey, p2, p3, n = stream[2]
-    fp2, c2 = state.keys.clone(), state.counts.clone()
-    kw = dict(fp_bits=table.fp_bits, depth=4, seed=seed, n_reads=n)
-    high, stats = bucket_upsert(state.keys, state.counts, skey, p2, p3, **kw)
+    if case == "batches":
+        stream = []
+        for _ in range(3):
+            bases, lengths = _reads(rng, 512, 100)
+            key = encode_keys(torch.from_numpy(bases).to(dev),
+                              torch.from_numpy(lengths).to(dev), 11, False)
+            rid = torch.arange(key.numel(), device=dev) // key.shape[1]
+            skey, srid = sort_stream(key.reshape(-1), rid)
+            p2, p3 = rank_cand_scan(skey, srid, fp_bits=table.fp_bits,
+                                    n_reads=key.shape[0])
+            stream.append((skey, p2, p3, key.shape[0]))
+        for skey, p2, p3, n in stream[:2]:
+            bucket_upsert(state.keys, state.counts, skey, p2, p3,
+                          fp_bits=table.fp_bits, depth=4, seed=True,
+                          n_reads=n)
+        skey, p2, p3, n = stream[2]
+        return state.keys, state.counts, skey, p2, p3, n, table.fp_bits
+    (fpa, _, counts), elems = _crafted_rows(rng, 256, lanes, table.fp_bits,
+                                            False)
+    fp, cnt = _to_dev(dev, fpa, counts)
+    n_reads = 512
+    key = (elems[:, 0] << table.fp_bits) | (elems[:, 1] - 1)
+    key = np.concatenate([key, np.full(77, 0xFFFFFFFF)])
+    skey_in, = _to_dev(dev, key)
+    rid = torch.from_numpy(rng.integers(0, n_reads, size=key.size)).to(dev)
+    skey, srid = sort_stream(skey_in, rid)
+    p2, p3 = rank_cand_scan(skey, srid, fp_bits=table.fp_bits,
+                            n_reads=n_reads)
+    return fp, cnt, skey, p2, p3, n_reads, table.fp_bits
+
+
+@pytest.mark.parametrize("case", ["batches", "crafted"])
+@pytest.mark.parametrize("lanes", [64, 128])
+@pytest.mark.parametrize("seed", [False, True])
+def test_bucket_kernel_matches_plain(dev, lanes, seed, case):
+    """A batch on a pre-filled table whose rows partly overflow: planes,
+    tallies and stats equal. "batches": two seed batches then a third;
+    "crafted": rows at occupancy 0, 31, 32, 33, 64 and full, runs and rows
+    longer than 32 elements, a slice of 32 row starts (_crafted_rows)."""
+    rng = np.random.default_rng(lanes + seed + (case == "crafted") * 7)
+    fp, counts, skey, p2, p3, n, fp_bits = _narrow_stream(dev, case, lanes,
+                                                          rng)
+    fp2, c2 = fp.clone(), counts.clone()
+    kw = dict(fp_bits=fp_bits, depth=3 if case == "crafted" else 4,
+              seed=seed, n_reads=n)
+    high, stats = bucket_upsert(fp, counts, skey, p2, p3, **kw)
     phigh, pstats = bucket_upsert_plain(fp2, c2, skey, p2, p3, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(state.keys, fp2) and torch.equal(state.counts, c2)
+    assert torch.equal(fp, fp2) and torch.equal(counts, c2)
     assert torch.equal(high, phigh) and torch.equal(stats, pstats)
     assert int(stats[0]) > 0 and int(stats[1]) > 0
+    if not seed:
+        assert int(high.sum()) > 0
 
 
 # ----------------------------------------------------------------------
@@ -182,20 +280,46 @@ def _check_wide_upsert(table, state, stream, seed, depth=4):
     return stats
 
 
+def _crafted_wide_stream(dev, table, rng):
+    """The rows and codes of _crafted_rows on a wide table: planes on the
+    card and the sorted, scanned stream (150 windows per read)."""
+    rows, lanes = table.rows, table.lanes
+    planes, elems = _crafted_rows(rng, rows, lanes, table.row_shift,
+                                  table.k > 16)
+    w = 150
+    w1 = (elems[:, 0] << table.row_shift) | (elems[:, 1] - 1)
+    w2 = elems[:, 2]
+    pad = -len(w1) % w + 2 * w
+    w1 = np.concatenate([w1, np.full(pad, 0xFFFFFFFF)])
+    w2 = np.concatenate([w2, np.full(pad, 0xFFFFFFFF)])
+    sk1, sk2, srid = sort_stream_wide(*_to_dev(dev, w1, w2), w)
+    n_reads = len(w1) // w
+    p2, p3 = rank_cand_scan(sk1, srid, fp_bits=0, n_reads=n_reads,
+                            skey2=sk2, row_shift=table.row_shift)
+    return _to_dev(dev, *planes), (sk1, sk2, p2, p3, n_reads)
+
+
+@pytest.mark.parametrize("case", ["batches", "crafted"])
 @pytest.mark.parametrize("k", [16, 25, 31])
 @pytest.mark.parametrize("lanes", [64, 128])
 @pytest.mark.parametrize("seed", [False, True])
-def test_bucket_wide_kernel_matches_plain(dev, k, lanes, seed):
-    """A 512-row table pre-filled by two seed batches, then one batch whose
-    rows partly overflow: planes, tallies and stats equal."""
-    rng = np.random.default_rng(k + lanes + seed)
+def test_bucket_wide_kernel_matches_plain(dev, k, lanes, seed, case):
+    """A batch on a 512-row table whose rows partly overflow: planes, tallies
+    and stats equal. "batches": two seed batches then a third; "crafted": the
+    rows and codes of _crafted_rows."""
+    rng = np.random.default_rng(k + lanes + seed + (case == "crafted") * 7)
     table = BucketTableWide(k, rows=512, lanes=lanes, device=dev)
     state = table.init()
     assert (state.keys2 is None) == (k == 16)
-    stream = _wide_batches(dev, table, rng)
-    for s in stream[:2]:
-        _check_wide_upsert(table, state, s, seed=True)
-    stats = _check_wide_upsert(table, state, stream[2], seed=seed)
+    if case == "batches":
+        stream = _wide_batches(dev, table, rng)
+        for s in stream[:2]:
+            _check_wide_upsert(table, state, s, seed=True)
+        stats = _check_wide_upsert(table, state, stream[2], seed=seed)
+    else:
+        (fpa, fpb, counts), stream = _crafted_wide_stream(dev, table, rng)
+        state = state._replace(keys=fpa, keys2=fpb, counts=counts)
+        stats = _check_wide_upsert(table, state, stream, seed=seed, depth=3)
     assert int(stats[0]) > 0 and int(stats[1]) > 0
 
 

@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from nomalise_kmers_multi_large_tpu.config import Config, ConfigError
 from nomalise_kmers_multi_large_torch import cli
-from nomalise_kmers_multi_large_torch.config import port_config
+from nomalise_kmers_multi_large_torch.config import (
+    Config, ConfigError, port_config,
+)
 from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -121,7 +122,9 @@ def test_port_imports_no_jax():
     code = ("import sys, nomalise_kmers_multi_large_torch, "
             "nomalise_kmers_multi_large_torch.cli, "
             "nomalise_kmers_multi_large_torch.engine.pipeline; "
-            "sys.exit(1 if 'jax' in sys.modules else 0)")
+            "sys.exit(1 if any(m == 'jax' or m.startswith("
+            "('jax.', 'nomalise_kmers_multi_large_tpu')) "
+            "for m in sys.modules) else 0)")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
 
 

@@ -3,7 +3,8 @@ grows from 128 rows: output files, -P dumps, totals and exported tables,
 byte for byte."""
 import numpy as np
 
-from nomalise_kmers_multi_large_tpu.config import Config
+from nomalise_kmers_multi_large_tpu.config import Config as RefConfig
+from nomalise_kmers_multi_large_torch.config import Config
 from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 from test_engine import _make_reads
 from test_torch_pipeline import _write_fasta
@@ -23,15 +24,15 @@ def test_normalizer_matches_reference_while_growing(tmp_path):
     _write_fasta(fa, reads[0::2])
     _write_fasta(fb, reads[1::2])
 
-    def cfg(sub, table):
+    def cfg(sub, table, cls=Config):
         (tmp_path / sub).mkdir()
-        return Config(forward_files=(str(fa),), reverse_files=(str(fb),),
+        return cls(forward_files=(str(fa),), reverse_files=(str(fb),),
                       informat="fa", outformat="fa", ksize=9, depth=4,
                       batch_reads=128, print_table=True,
                       out_dir=str(tmp_path / sub), table=table)
 
     port = Normalizer(cfg("port", "auto"), device="cpu")
-    ref = RefNormalizer(cfg("ref", "bucket"))
+    ref = RefNormalizer(cfg("ref", "bucket", RefConfig))
     assert port.tables[0].rows == ref.tables[0].rows == 128
     prep, rrep = port.run(), ref.run()
     assert port.tables[0].rows == ref.tables[0].rows > 128

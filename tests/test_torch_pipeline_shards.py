@@ -1,10 +1,11 @@
 """The port's Normalizer with logical shards (-p 2) and grouped dispatch
 (--dispatch-group 2) against the reference Normalizer: per-shard output
 files, -P dumps and totals byte for byte."""
-from nomalise_kmers_multi_large_tpu.config import Config
+from nomalise_kmers_multi_large_tpu.config import Config as RefConfig
 from nomalise_kmers_multi_large_tpu.engine.pipeline import (
     Normalizer as RefNormalizer,
 )
+from nomalise_kmers_multi_large_torch.config import Config
 from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 from test_engine import _make_reads
 from test_torch_pipeline import _write_fasta
@@ -16,16 +17,16 @@ def test_shards_and_dispatch_groups_match_reference(tmp_path):
     _write_fasta(fa, reads[0::2])
     _write_fasta(fb, reads[1::2])
 
-    def cfg(sub, table):
+    def cfg(sub, table, cls=Config):
         (tmp_path / sub).mkdir()
-        return Config(forward_files=(str(fa),), reverse_files=(str(fb),),
+        return cls(forward_files=(str(fa),), reverse_files=(str(fb),),
                       informat="fa", outformat="fa", ksize=9, depth=6,
                       shards=2, dispatch_group=2, batch_reads=48,
                       print_table=True, out_dir=str(tmp_path / sub),
                       table=table)
 
     prep = Normalizer(cfg("port", "auto"), device="cpu").run()
-    rrep = RefNormalizer(cfg("ref", "bucket")).run()
+    rrep = RefNormalizer(cfg("ref", "bucket", RefConfig)).run()
     assert (prep.total_processed, prep.total_printed, prep.total_skipped,
             prep.max_total_kmers) == (
         rrep.total_processed, rrep.total_printed, rrep.total_skipped,

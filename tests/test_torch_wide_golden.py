@@ -11,9 +11,10 @@ import pathlib
 
 import pytest
 
-from nomalise_kmers_multi_large_tpu.config import Config, ConfigError
 from nomalise_kmers_multi_large_torch import cli
-from nomalise_kmers_multi_large_torch.config import port_config
+from nomalise_kmers_multi_large_torch.config import (
+    Config, ConfigError, port_config,
+)
 from test_torch_pipeline import _totals, _write_fasta
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

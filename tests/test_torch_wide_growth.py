@@ -5,7 +5,8 @@ stride 2 at k = 21. Output files, -P dumps and totals, byte for byte."""
 import pathlib
 
 import nomalise_kmers_multi_large_torch.table as port_table
-from nomalise_kmers_multi_large_tpu.config import Config
+from nomalise_kmers_multi_large_tpu.config import Config as RefConfig
+from nomalise_kmers_multi_large_torch.config import Config
 from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
@@ -24,9 +25,9 @@ def _run_both(tmp_path, monkeypatch, **kw):
         Normalizer as RefNormalizer,
     )
 
-    def cfg(sub, table):
+    def cfg(sub, table, cls=Config):
         (tmp_path / sub).mkdir()
-        return Config(informat="fa", outformat="fa", depth=4,
+        return cls(informat="fa", outformat="fa", depth=4,
                       print_table=True, out_dir=str(tmp_path / sub),
                       table=table, **kw)
 
@@ -36,7 +37,7 @@ def _run_both(tmp_path, monkeypatch, **kw):
     port = Normalizer(cfg("port", "auto"), device="cpu")
     assert port.tables[0].wide and port.tables[0].rows == 512
     prep = port.run()
-    rrep = RefNormalizer(cfg("ref", "hashed")).run()
+    rrep = RefNormalizer(cfg("ref", "hashed", RefConfig)).run()
     assert (prep.total_processed, prep.total_printed, prep.total_skipped,
             prep.max_total_kmers) == (
         rrep.total_processed, rrep.total_printed, rrep.total_skipped,

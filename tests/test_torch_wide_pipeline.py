@@ -6,7 +6,8 @@ import pathlib
 
 import numpy as np
 
-from nomalise_kmers_multi_large_tpu.config import Config
+from nomalise_kmers_multi_large_tpu.config import Config as RefConfig
+from nomalise_kmers_multi_large_torch.config import Config
 from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
@@ -17,16 +18,16 @@ def test_normalizer_matches_reference_k25_a1b1(tmp_path):
         Normalizer as RefNormalizer,
     )
 
-    def cfg(sub, table):
+    def cfg(sub, table, cls=Config):
         (tmp_path / sub).mkdir()
-        return Config(forward_files=(str(DATA / "a1.fasta"),),
+        return cls(forward_files=(str(DATA / "a1.fasta"),),
                       reverse_files=(str(DATA / "b1.fasta"),),
                       informat="fa", outformat="fa", ksize=25, depth=4,
                       print_table=True, out_dir=str(tmp_path / sub),
                       table=table)
 
     port = Normalizer(cfg("port", "auto"), device="cpu")
-    ref = RefNormalizer(cfg("ref", "bucket"))
+    ref = RefNormalizer(cfg("ref", "bucket", RefConfig))
     assert port.tables[0].wide and ref.tables[0].wide
     prep, rrep = port.run(), ref.run()
     totals = (prep.total_processed, prep.total_printed, prep.total_skipped,
