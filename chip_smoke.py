@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--profile]   (from the root of a checkout; one card)
+    python3 chip_smoke.py [--profile | --kernels]
+                          (from the root of a checkout; one card)
 
 Phases, each of which fails the run on error:
 
 1. The card's name and power limit; build every kernel from
-   nomalise_kmers_multi_large_torch/csrc with nvcc (sm_90a).
+   nomalise_kmers_multi_large_torch/csrc with nvcc (sm_90a), and print
+   what ptxas reports for each kernel: registers, shared memory, spills.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (8192 read pairs = 16384 reads x 150 bp, a table of 2^21
    rows pre-filled by a seed pass): exact equality, and each one's time
-   beside the plain version's (CUDA events, mean of several launches) and
-   its bound: the bytes its work needs over 3.35 TB/s. The bucket kernels'
+   beside its bound (the bytes its work needs over 3.35 TB/s) and the
+   plain version's. A kernel's time is device time only (time_ms): the
+   host enqueues ten calls behind a device-side hold (torch.cuda._sleep,
+   sized from a host-clock run of the same loop), each call between its
+   own pair of CUDA events, with its setup outside the pair: the table
+   planes reset for K4/K5, a 64 MiB write that flushes the 50 MB L2 for
+   the others. One synchronise, then the mean of the pairs. A run whose
+   hold ran out before the last call was enqueued (a host stall) is timed
+   again behind a longer hold; the script fails after three such runs, or
+   if a kernel reads faster than its bound. `host_ms` is the host clock around each
+   call of the wrapper (no synchronise): what the host-bound main path
+   pays per call. Plain versions, which may synchronise, are timed per
+   call with a synchronise, host enqueue included. The bucket kernels'
    bytes depend on the data and are counted on the card from the batch
    (touched rows, their occupied lanes, matched and inserted codes).
    The k <= 15 kernels (K1, K3, K4) at k = 15; the wide kernels (K2, K3w,
@@ -19,7 +32,11 @@ Phases, each of which fails the run on error:
    and k = 31 on a 2^18-row table. K4 and K5 are checked and timed twice:
    after a 4-batch seed pass (~3 lanes per row) and again after fresh
    batches fill at least 40M slots (~19 lanes per row, near the end of
-   phase 4's stream).
+   phase 4's stream). K3 and K3w also run once on a stream of 20.2M
+   elements in which one code repeats 200,000 times (its rank saturates
+   through the scan's look-back), equal to the plain version exactly.
+   For K3 and K3w it also prints how far back their look-back must reach
+   on the timed batch.
 3. Golden parity: the port's CLI on tests/data/{a1,b1}.fasta -t fa -o fa
    -d 4 --device cuda is byte-identical to tests/golden/fasta_in_paired_k15
    at -k 15 and to tests/golden/fasta_in_paired_k25_jax (made by the JAX
@@ -36,7 +53,8 @@ Phases, each of which fails the run on error:
    same checks, and the table must have grown from its 2^14 rows.
 6. Only with --profile: phases 4 and 5 again on the same files, each one
    whole run under torch.profiler (CPU and CUDA activities), whose totals
-   must equal theirs. For each it prints the wall time, the device busy
+   must equal theirs and whose device events must hold every launch of the
+   path's kernels that phases 4 and 5 counted. For each it prints the wall time, the device busy
    time (the union of the intervals of device events), the idle share and
    the device time by kernel or copy name (the 15 largest). The profiler
    slows the host, so an idle share from this phase is an upper bound.
@@ -44,6 +62,12 @@ Phases, each of which fails the run on error:
 Standard output ends with one JSON line of per-kernel results, then
 {"ok": true, "device": {...}} as the last line. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
+
+With --kernels it runs phases 1 and 2 only and ends with the per-kernel
+line (no launches, no "ok" line). To time one version of the kernels
+against another in turns on one card, copy this script into a checkout of
+each version and run them one after another in one session, for example
+old, new, new, old: each builds and times its own checkout's kernels.
 """
 from __future__ import annotations
 
@@ -52,6 +76,7 @@ import collections
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -70,6 +95,11 @@ TABLE_ROWS = 1 << 21      # phase 2 table: the size phase 4 grows to
 FULL_FILL_SLOTS = 40_000_000  # phase 2's fuller fill (phase 4 ends at 43.7M)
 MAX_FILL_BATCHES = 200
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
+L2_FLUSH_BYTES = 64 << 20  # > the H100's 50 MB L2
+HOLD_CALIBRATION_CYCLES = 1 << 21  # torch.cuda._sleep cycles timed once
+HOLD_ATTEMPTS = 3         # time_ms runs whose hold may run out
+LONG_SCAN = 20_000_000    # phase 2's long scan stream (~4,900 tiles)
+LONG_RUN = 200_000        # one code repeated across ~49 tiles in it
 
 REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
     "encode_keys": "nomalise_kmers_multi_large_tpu/ops/encode_kernel.py:289",
@@ -80,6 +110,15 @@ REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
     "rank_cand_scan_wide": "nomalise_kmers_multi_large_tpu/ops/segscan.py:194",
     "bucket_batch_wide":
         "nomalise_kmers_multi_large_tpu/ops/bucket_kernel.py:1127",
+}
+#: kernel -> its device function, as a profile names it ("::<name>(")
+DEVICE_FUNCTIONS = {
+    "encode_keys": "encode_keys_kernel",
+    "rank_cand_scan": "rank_cand_kernel<false>",
+    "bucket_batch": "bucket_batch_kernel",
+    "encode_keys_wide": "encode_keys_wide_kernel",
+    "rank_cand_scan_wide": "rank_cand_kernel<true>",
+    "bucket_batch_wide": "bucket_batch_wide_kernel",
 }
 #: the kernels each path runs; a path's run must launch every one of them
 PATH_KERNELS = {
@@ -149,9 +188,74 @@ def write_pairs(rng, n_pairs, path1, path2):
 
 # ----------------------------------------------------------------------
 
-def time_ms(fn, setup=None, iters=10, warmup=2) -> float:
-    """Mean device time of fn() in ms between CUDA events; setup() (not
-    timed) runs before each call."""
+def time_ms(fn, setup=None, iters=10, warmup=2) -> tuple[float, float]:
+    """(device ms, host ms) of fn(), a kernel's wrapper.
+
+    The host enqueues all `iters` calls behind a device-side hold
+    (torch.cuda._sleep, sized from a host-clock measurement of the same
+    enqueue loop); each call has its own CUDA event pair around it, and
+    setup() runs before each, outside the pair. After one synchronise the
+    device time is the mean of the pairs: the host's enqueue is in no
+    window. If the hold ran out before the host had enqueued the last call
+    (the host stalled), the times are discarded and the calls run again
+    behind a hold sized from the stalled enqueue; it fails after
+    HOLD_ATTEMPTS such runs. The host time is the host clock around each
+    call of the wrapper (no synchronise), what a host-bound caller pays per
+    call."""
+    def call():
+        if setup:
+            setup()
+        fn()
+
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    c0, c1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    c0.record()
+    torch.cuda._sleep(HOLD_CALIBRATION_CYCLES)
+    c1.record()
+    c1.synchronize()
+    cycles_per_ms = HOLD_CALIBRATION_CYCLES / c0.elapsed_time(c1)
+    hold_ms = 3 * enqueue_ms + 2.0
+    for _ in range(HOLD_ATTEMPTS):
+        events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  for _ in range(iters + 1)]
+        host_s = 0.0
+        t0 = time.perf_counter()
+        events[0][0].record()
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        events[0][1].record()
+        for a, b in events[1:]:
+            if setup:
+                setup()
+            a.record()
+            t = time.perf_counter()
+            fn()
+            host_s += time.perf_counter() - t
+            b.record()
+        enqueued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        held_ms = events[0][0].elapsed_time(events[0][1])
+        if enqueued_ms < held_ms:
+            device_ms = sum(a.elapsed_time(b) for a, b in events[1:]) / iters
+            return device_ms, host_s * 1e3 / iters
+        print(f"time_ms: the device hold ({held_ms:.3f} ms) ran out before "
+              f"the host had enqueued {iters} calls ({enqueued_ms:.3f} ms); "
+              "timing again")
+        hold_ms = 3 * enqueued_ms + 2.0
+    raise AssertionError(f"the device hold ran out before the host had "
+                         f"enqueued {iters} calls in {HOLD_ATTEMPTS} runs")
+
+
+def time_synced_ms(fn, setup=None, iters=3, warmup=1) -> float:
+    """Mean time of fn() between CUDA events with a synchronise after each
+    call, host enqueue included: for plain versions and torch calls, which
+    may synchronise themselves and so cannot run behind a hold."""
     for _ in range(warmup):
         if setup:
             setup()
@@ -168,6 +272,13 @@ def time_ms(fn, setup=None, iters=10, warmup=2) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def l2_flush(dev):
+    """setup() for a kernel whose inputs the previous call left in the
+    50 MB L2: writes L2_FLUSH_BYTES."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    return lambda: buf.fill_(0)
 
 
 def max_abs_err(pairs) -> int:
@@ -201,21 +312,24 @@ def read_batches(rng, dev, n_batches: int):
 def report(out: dict, label: str):
     for name, r in out.items():
         print(f"{label}: {name}: max_abs_err {r['max_abs_err']}, kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['work_bytes']:,} bytes), share "
-              f"{r['share']:.3f}")
+              f"{r['ms']:.4f} ms (host enqueue {r['host_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['work_bytes']:,} bytes), share {r['share']:.3f}")
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
+        if r["share"] > 1:
+            raise AssertionError(f"{name}: faster than its bound; the "
+                                 "timing is wrong")
 
 
 def timed(fn, plain, work_bytes: int, err: int, setup=None) -> dict:
     """A kernel's row of the kernels line: its time and its plain version's
     on the same inputs, and its bound, the bytes its work needs (each input
     read once, each output written once) over the card's memory rate."""
-    ms = time_ms(fn, setup=setup)
+    ms, host_ms = time_ms(fn, setup=setup)
     bound = work_bytes / HBM_BYTES_PER_MS
-    return dict(max_abs_err=err, ms=ms,
-                plain_ms=time_ms(plain, setup=setup, iters=3),
+    return dict(max_abs_err=err, ms=ms, host_ms=host_ms,
+                plain_ms=time_synced_ms(plain, setup=setup),
                 bound_ms=bound, bound_by="bytes", share=bound / ms,
                 library_ms=None, work_bytes=work_bytes)
 
@@ -338,17 +452,22 @@ def phase_kernels(rng, dev) -> dict:
 
     out = {}
     n = skey.numel()
+    flush = l2_flush(dev)
     err = max_abs_err([(key, encode_keys_plain(bases, lengths, k, False))])
     out["encode_keys"] = timed(
         lambda: encode_keys(bases, lengths, k, False),
         lambda: encode_keys_plain(bases, lengths, k, False),
-        bases.numel() + 4 * reads + 4 * key.numel(), err)
+        bases.numel() + 4 * reads + 4 * key.numel(), err, setup=flush)
     skw = dict(fp_bits=table.fp_bits, n_reads=reads)
     err = max_abs_err(zip(rank_cand_scan(skey, srid, **skw),
                           rank_cand_scan_plain(skey, srid, **skw)))
     out["rank_cand_scan"] = timed(
         lambda: rank_cand_scan(skey, srid, **skw),
-        lambda: rank_cand_scan_plain(skey, srid, **skw), 16 * n, err)
+        lambda: rank_cand_scan_plain(skey, srid, **skw), 16 * n, err,
+        setup=flush)
+    del flush
+    print(f"phase 2: rank_cand_scan look-back depth on the batch: "
+          f"{lookback_depth(skey, table.fp_bits)}")
 
     def bucket_out(skey, p2, p3, label):
         ukey = skey.to(torch.int64) & 0xFFFFFFFF
@@ -460,19 +579,23 @@ def phase_kernels_wide(rng, dev) -> dict:
             torch.cuda.empty_cache()
             continue
         w = words[0].shape[1]
+        flush = l2_flush(dev)
         out["encode_keys_wide"] = timed(
             lambda: encode_keys_wide(bases, lengths, k, False),
             lambda: encode_keys_wide_plain(bases, lengths, k, False),
-            bases.numel() + 4 * reads + 8 * reads * w, 0)
+            bases.numel() + 4 * reads + 8 * reads * w, 0, setup=flush)
         out["rank_cand_scan_wide"] = timed(
             lambda: rank_cand_scan(sk1, srid, skey2=sk2, **scan_kw),
             lambda: rank_cand_scan_plain(sk1, srid, skey2=sk2, **scan_kw),
-            20 * n, 0)
+            20 * n, 0, setup=flush)
+        del flush
+        print(f"phase 2 (k=25): rank_cand_scan_wide look-back depth on the "
+              f"batch: {lookback_depth(sk1, table.row_shift)}")
         out["bucket_batch_wide"] = bucket
         w1f, w2f = words[0].reshape(-1), words[1].reshape(-1)
+        sort_ms = time_synced_ms(lambda: sort_stream_wide(w1f, w2f, w))
         print(f"phase 2 (k=25): sort_stream_wide (torch.sort, not a kernel "
-              f"of the port) "
-              f"{time_ms(lambda: sort_stream_wide(w1f, w2f, w)):.4f} ms")
+              f"of the port) {sort_ms:.4f} ms, host enqueue included")
         fill = batch_stream(np.random.default_rng(SEED + 3), dev)
         slots = fill_table(planes, seed_batch, fill,
                            "phase 2 (k=25, fuller fill)")
@@ -487,6 +610,64 @@ def phase_kernels_wide(rng, dev) -> dict:
     del batches
     torch.cuda.empty_cache()
     return out
+
+
+def lookback_depth(skey, shift: int) -> str:
+    """How far back the scan's look-back must reach on a sorted stream:
+    for each tile after the first, the distance to the nearest earlier tile
+    that holds a row change (a look-back stops there at the latest)."""
+    from nomalise_kmers_multi_large_torch.ops.segscan import _TILE
+
+    row = (skey.to(torch.int64) & 0xFFFFFFFF) >> shift
+    n_tiles = -(-row.numel() // _TILE)
+    rch = torch.zeros(n_tiles * _TILE, dtype=torch.bool, device=row.device)
+    rch[0] = True
+    rch[1:row.numel()] = row[1:] != row[:-1]
+    idx = torch.arange(n_tiles, device=row.device)
+    last = torch.cummax(torch.where(rch.view(n_tiles, _TILE).any(1), idx, -1),
+                        0).values
+    depth = (idx[1:] - last[:-1]).float()
+    return (f"mean {float(depth.mean()):.3f}, max {int(depth.max())} tiles "
+            f"of {_TILE:,}")
+
+
+def phase_scan_long(dev):
+    """K3 and K3w once each on a stream of LONG_SCAN + LONG_RUN elements
+    (far more tiles than the card holds at once) in which one code repeats
+    LONG_RUN times, so its rank saturates at 65535 through the look-back:
+    equal to the plain version exactly."""
+    from nomalise_kmers_multi_large_torch.ops.segscan import (
+        _TILE, rank_cand_scan, rank_cand_scan_plain,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    key = torch.randint(0, 1 << 24, (LONG_SCAN,), device=dev, generator=g)
+    run = torch.full((LONG_RUN,), 1 << 23, device=dev)
+    key2 = torch.randint(0, 3, (LONG_SCAN,), device=dev, generator=g)
+    # sort by (key, key2); the repeated code keeps key2 = 0
+    packed = torch.sort(torch.cat([(key << 2) | key2, run << 2])).values
+    key, key2 = packed >> 2, packed & 3
+    key[-1000:], key2[-1000:] = 0xFFFFFFFF, 0xFFFFFFFF  # sentinels
+    sk, sk2 = (x.to(torch.int32) for x in (key, key2))
+    srid = torch.randint(0, BATCH_READS, (sk.numel(),), device=dev,
+                         generator=g, dtype=torch.int32)
+    errs = {}
+    for name, kw in (("rank_cand_scan", dict(fp_bits=9)),
+                     ("rank_cand_scan_wide", dict(fp_bits=0, skey2=sk2,
+                                                  row_shift=17))):
+        got = rank_cand_scan(sk, srid, n_reads=BATCH_READS, **kw)
+        want = rank_cand_scan_plain(sk, srid, n_reads=BATCH_READS, **kw)
+        errs[name] = max_abs_err(zip(got, want))
+        top = int((got[0] & 0xFFFF).max())
+        if errs[name] or top != 65535:
+            raise AssertionError(f"{name} on the long stream: max_abs_err "
+                                 f"{errs[name]}, highest rank {top}")
+    print(f"phase 2 (long stream): {sk.numel():,} elements in "
+          f"{-(-sk.numel() // _TILE):,} tiles, one code {LONG_RUN:,} times "
+          f"(rank saturates at 65535): max_abs_err {errs}")
+    del key, key2, packed, sk, sk2, srid, got, want
+    torch.cuda.empty_cache()
 
 
 def phase_golden(k: int, case: str):
@@ -619,9 +800,12 @@ def busy_us(intervals) -> float:
     return total
 
 
-def phase_profile(dev, k: int, files, want: tuple, label: str):
+def phase_profile(dev, k: int, files, want: tuple, launches: dict,
+                  label: str):
     """One whole run of the engine at -k `k` on the phase-4 files under
-    torch.profiler; its totals must equal `want`, the unprofiled run's."""
+    torch.profiler; its totals must equal `want`, the unprofiled run's, and
+    the profile must hold every launch of the path's kernels that the
+    unprofiled run counted (`launches`), or it lost device events."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -639,10 +823,15 @@ def phase_profile(dev, k: int, files, want: tuple, label: str):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         raise AssertionError(f"{label}: the profile holds no device events")
+    seen = {name: sum(f"::{DEVICE_FUNCTIONS[name]}(" in e[0]
+                      for e in events) for name in launches}
+    if seen != launches:
+        raise AssertionError(f"{label}: the profile holds {seen} of the "
+                             f"launches {launches}: it lost device events")
     busy = busy_us([(a, b) for _, a, b in events]) / 1e6
-    print(f"{label}: k={k}: profiled run, totals as unprofiled {want}: wall "
-          f"{wall:.3f} s, device busy {busy:.3f} s, idle "
-          f"{1 - busy / wall:.1%} ({len(events):,} device events)")
+    print(f"{label}: k={k}: profiled run, totals and launches as "
+          f"unprofiled {want}: wall {wall:.3f} s, device busy {busy:.3f} s, "
+          f"idle {1 - busy / wall:.1%} ({len(events):,} device events)")
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for name, a, b in events:
         by_name[name][0] += b - a
@@ -653,10 +842,40 @@ def phase_profile(dev, k: int, files, want: tuple, label: str):
               f"{us / 1e3 / count:8.4f} ms  {name[:90]}")
 
 
+def ptxas_usage(log: str) -> list[str]:
+    """One line per kernel of a `nvcc -Xptxas -v` log: its registers,
+    shared memory and spill stores."""
+    out, entry, spills = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spills = m.group(1), "?"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{entry}: {m.group(1)} registers, "
+                       f"{smem.group(1) if smem else 0} B shared memory, "
+                       f"{spills} B spill stores")
+            entry = None
+    if shutil.which("c++filt") and out:  # demangle; keep the bare name
+        out = subprocess.run(["c++filt", "-p"], input="\n".join(out),
+                             text=True, capture_output=True, check=True,
+                             timeout=60).stdout.splitlines()
+        out = [re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", line)
+               for line in out]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also run phase 6, the device-time profile")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--profile", action="store_true",
+                      help="also run phase 6, the device-time profile")
+    mode.add_argument("--kernels", action="store_true",
+                      help="run phases 1 and 2 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -670,6 +889,9 @@ def main() -> int:
     print(f"phase 1: built {sorted(backend.KERNEL_SOURCES)} with nvcc "
           f"{' '.join(backend.NVCC_FLAGS)} in "
           f"{time.perf_counter() - t0:.1f} s")
+    for src in sorted(set(backend.KERNEL_SOURCES.values())):
+        for line in ptxas_usage(backend.build_log(src)):
+            print(f"phase 1: {src}: {line}")
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
@@ -679,6 +901,12 @@ def main() -> int:
         # of this script wrote it
         timing.update(phase_kernels_wide(np.random.default_rng(SEED + 1),
                                          dev))
+        phase_scan_long(dev)
+        if args.kernels:
+            print(json.dumps({"kernels": [
+                {"name": name, "source": src, **timing[name]}
+                for name, src in backend.KERNEL_SOURCES.items()]}))
+            return 0
         phase_golden(15, "fasta_in_paired_k15")
         phase_golden(25, "fasta_in_paired_k25_jax")
         files, check_files = write_inputs(rng)
@@ -688,7 +916,9 @@ def main() -> int:
             launches.update(got)
         if args.profile:
             for k in (15, 25):
-                phase_profile(dev, k, files, want[k], "phase 6")
+                phase_profile(dev, k, files, want[k],
+                              {n: launches[n] for n in PATH_KERNELS[k]},
+                              "phase 6")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card_line())

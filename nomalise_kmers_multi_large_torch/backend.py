@@ -27,7 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> its source in csrc/
 KERNEL_SOURCES = {
@@ -84,7 +84,9 @@ def _so_path(directory: str, source: str) -> str:
 
 def build() -> dict[str, str]:
     """Compile every kernel source that has no current build, all nvcc
-    processes started together. Returns {source: shared library path}."""
+    processes started together. Returns {source: shared library path}.
+    Each build's compiler output (ptxas: registers, shared memory and
+    spills of each kernel) is kept beside its library (build_log)."""
     with _lock:
         out_dir = build_dir()
         os.makedirs(out_dir, exist_ok=True)
@@ -107,10 +109,19 @@ def build() -> dict[str, str]:
             if proc.returncode != 0:
                 errors.append(f"{src}:\n{log.decode(errors='replace')}")
             else:
+                with open(os.path.splitext(so)[0] + ".log", "wb") as f:
+                    f.write(log)
                 os.replace(tmp, so)
         if errors:
             raise RuntimeError("nvcc failed\n" + "\n".join(errors))
         return paths
+
+
+def build_log(source: str) -> str:
+    """The compiler output of `source`'s current build (after build())."""
+    path = os.path.splitext(_so_path(build_dir(), source))[0] + ".log"
+    with open(path, encoding="utf-8", errors="replace") as f:
+        return f.read()
 
 
 def function(kernel: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:

@@ -14,8 +14,9 @@ either word changes, and the row is ``skey >> row_shift``.
 
 Keys are int32 bit patterns (sentinel -1 = 0xFFFFFFFF, sorted last). The
 stream length needs no padding. ``rank_cand_scan`` launches the CUDA kernel
-(csrc/segscan.cu; ``rank_cand_scan_wide`` is its wide entry point) for CUDA
-tensors and runs ``rank_cand_scan_plain`` for CPU tensors.
+(csrc/segscan.cu, one pass with decoupled look-back over tiles of _TILE
+elements; ``rank_cand_scan_wide`` is its wide entry point) for CUDA tensors
+and runs ``rank_cand_scan_plain`` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 
 from nomalise_kmers_multi_large_torch import backend
 
-_TILE = 2048  # elements per scan tile; csrc/segscan.cu kTile
+_TILE = 4096  # elements per scan tile; csrc/segscan.cu kTile
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
@@ -90,8 +91,8 @@ def rank_cand_scan(skey: torch.Tensor, srid: torch.Tensor, *, fp_bits: int,
     n_tiles = -(-n // _TILE)
     p2 = torch.empty_like(skey)
     p3 = torch.empty_like(skey)
-    tiles = torch.empty((max(n_tiles, 1), 4), dtype=torch.int32,
-                        device=skey.device)
+    # the tile states and the tile counter; the C entry point zeroes them
+    tiles = torch.empty(n_tiles + 1, dtype=torch.int64, device=skey.device)
     name = "rank_cand_scan_wide" if wide else "rank_cand_scan"
     fn = backend.function(name, "nkm_" + name,
                           _ARGTYPES_WIDE if wide else _ARGTYPES)

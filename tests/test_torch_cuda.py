@@ -20,7 +20,7 @@ from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
 )
 from nomalise_kmers_multi_large_torch.ops.mix import feistel_words_np
 from nomalise_kmers_multi_large_torch.ops.segscan import (
-    rank_cand_scan, rank_cand_scan_plain,
+    _TILE, rank_cand_scan, rank_cand_scan_plain,
 )
 from nomalise_kmers_multi_large_torch.table.bucket import (
     BucketTable, BucketTableWide,
@@ -72,6 +72,127 @@ def test_scan_kernel_matches_plain(dev):
         got = rank_cand_scan(sk, sr, fp_bits=fp_bits, n_reads=9000)
         want = rank_cand_scan_plain(sk, sr, fp_bits=fp_bits, n_reads=9000)
         torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+T = _TILE
+SENT = 0xFFFFFFFF
+SCAN_CASES = ["empty", "one", "tile-1", "tile", "tile+1", "run-3-tiles",
+              "run-over-65535", "row-over-128", "row-3-tiles",
+              "key2-at-boundary", "over-20M"]
+
+
+def _sorted_keys(rng, n, hi=1 << 22):
+    return np.sort(rng.integers(0, hi, size=n)).astype(np.uint32)
+
+
+def _scan_case(case, wide, rng):
+    """A sorted stream (key, key2 or None, rid) for one of SCAN_CASES, and
+    the row shift: fp_bits 9 narrow, row_shift 17 wide."""
+    shift = 17 if wide else 9
+    rows = 1 << shift  # keys per row
+    if case == "empty":
+        key = np.zeros(0, np.uint32)
+    elif case == "one":
+        key = np.array([12345], np.uint32)
+    elif case.startswith("tile"):
+        n = T + {"tile-1": -1, "tile": 0, "tile+1": 1}[case]
+        key = _sorted_keys(rng, n, 1 << 30)
+    elif case == "run-3-tiles":  # one code, no reset, from mid tile 0 to 4
+        key = np.concatenate([
+            _sorted_keys(rng, T // 2, 5 * rows),
+            np.full(3 * T + 100, 5 * rows + 7, np.uint32),
+            _sorted_keys(rng, T, 1 << 30) | np.uint32(1 << 30)])
+    elif case == "run-over-65535":  # rank saturates through the look-back
+        key = np.concatenate([
+            _sorted_keys(rng, 1500, 3 * rows),
+            np.full(70_000, 3 * rows + 1, np.uint32),
+            _sorted_keys(rng, 9000, 1 << 30) | np.uint32(1 << 30)])
+    elif case == "row-over-128":  # 300 codes of one row across a boundary
+        key = np.concatenate([
+            _sorted_keys(rng, T - 700, 2 * rows),
+            np.repeat(2 * rows + np.arange(300, dtype=np.uint32), 5),
+            _sorted_keys(rng, 3000, 1 << 30) | np.uint32(1 << 30)])
+    elif case == "row-3-tiles":  # 100 codes of one row over 3 tiles
+        key = np.concatenate([
+            _sorted_keys(rng, T // 2, 2 * rows),
+            np.repeat(2 * rows + np.arange(100, dtype=np.uint32), 130),
+            _sorted_keys(rng, 3000, 1 << 30) | np.uint32(1 << 30)])
+    elif case == "key2-at-boundary":  # key constant over 2 tiles
+        key = np.concatenate([_sorted_keys(rng, T - 100, rows),
+                              np.full(2 * T, rows + 3, np.uint32),
+                              _sorted_keys(rng, 5000, 1 << 30)
+                              | np.uint32(1 << 30)])
+    else:  # over-20M: far more tiles than can be resident at once
+        key = np.concatenate([_sorted_keys(rng, 20_000_000, 1 << 24),
+                              np.full(200_000, (1 << 24) + 5, np.uint32)])
+    n = key.size
+    key2 = None
+    if wide:
+        key2 = rng.integers(0, 3, size=n).astype(np.uint32)
+        vals, counts = np.unique(key, return_counts=True)
+        key2[np.isin(key, vals[counts >= 1000])] = 0  # the long runs stay
+        if case == "key2-at-boundary":  # only key2 changes, exactly there
+            at = T - 100
+            key2[at:at + 2 * T] = 0
+            key2[T:at + 2 * T] = 1
+        order = np.lexsort((key2, key))
+        key, key2 = key[order], key2[order]
+    if case not in ("empty", "one"):
+        tail = min(77, n // 10)
+        key[n - tail:] = SENT
+        if wide:
+            key2[n - tail:] = SENT
+    rid = rng.integers(0, 16384 + 100, size=n).astype(np.int32)
+    return key, key2, rid, shift
+
+
+def _scan_on_card(dev, key, key2, rid, shift, offset=0):
+    """The kernel and the plain version on the same tensors (views that
+    start `offset` elements in)."""
+    t = [None if x is None else
+         torch.from_numpy(x.view(np.int32)).to(dev)[offset:]
+         for x in (key, key2, rid)]
+    kw = dict(fp_bits=shift, n_reads=16384) if key2 is None else \
+        dict(fp_bits=0, n_reads=16384, skey2=t[1], row_shift=shift)
+    got = rank_cand_scan(t[0], t[2], **kw)
+    want = rank_cand_scan_plain(t[0], t[2], **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("case,wide", [
+    (c, w) for c in SCAN_CASES for w in (False, True)
+    if w or c != "key2-at-boundary"])  # key2 exists on the wide path only
+def test_scan_tiles_match_plain(dev, case, wide):
+    """The single-pass scan at and around the tile size, across look-backs
+    that walk past the nearest tile (and past 32 tiles), saturating ranks,
+    rows over 128 codes or over 3 tiles, a key2-only change at a tile
+    boundary and > 20M elements."""
+    key, key2, rid, shift = _scan_case(case, wide, np.random.default_rng(
+        SCAN_CASES.index(case) + 50 * wide))
+    got, want = _scan_on_card(dev, key, key2, rid, shift)
+    assert got[0].shape == (key.size,)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "run-over-65535":
+        assert int((got[0] & 0xFFFF).max()) == 65535
+    if case == "row-over-128":
+        assert int(got[1].max()) == 128
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_scan_back_to_back_and_unaligned(dev, wide):
+    """Calls in a row each start from fresh tile states (a long stream, a
+    short one, the long one again), and views that are not 16-byte aligned
+    take the scalar loads."""
+    rng = np.random.default_rng(9 + wide)
+    long_case = _scan_case("run-over-65535", wide, rng)
+    short_case = _scan_case("tile+1", wide, rng)
+    for case in (long_case, short_case, long_case):
+        got, want = _scan_on_card(dev, *case)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for offset in (1, 3):
+        got, want = _scan_on_card(dev, *long_case, offset=offset)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
