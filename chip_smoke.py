@@ -20,8 +20,18 @@ Phases, each of which fails the run on error:
    planes reset for K4/K5, a 64 MiB write that flushes the 50 MB L2 for
    the others. One synchronise, then the mean of the pairs. A run whose
    hold ran out before the last call was enqueued (a host stall) is timed
-   again behind a longer hold; the script fails after three such runs, or
-   if a kernel reads faster than its bound. `host_ms` is the host clock around each
+   again behind a longer hold; the script fails after three such runs.
+   Then the same ten calls, with their setup, run once under
+   torch.profiler: `kernel_ms` is the mean duration of the kernel's own
+   device events (DEVICE_FUNCTIONS), without the launch gaps and the
+   setup's write-backs that the event windows also hold, and
+   `kernel_share` is the bound over it. A profile that holds fewer of the
+   kernel's events than calls is taken again; the script fails after three
+   such, or if a kernel reads faster than its bound (`share` or
+   `kernel_share` above 1). For the flushed kernels (K1-K3w) `copy_ms` is
+   the device duration of a device-to-device copy that moves the same
+   bytes after the same flush: what moving them costs the card in that L2
+   state, a floor for `kernel_ms`. `host_ms` is the host clock around each
    call of the wrapper (no synchronise): what the host-bound main path
    pays per call. Plain versions, which may synchronise, are timed per
    call with a synchronise, host enqueue included. The bucket kernels'
@@ -29,7 +39,9 @@ Phases, each of which fails the run on error:
    (touched rows, their occupied lanes, matched and inserted codes).
    The k <= 15 kernels (K1, K3, K4) at k = 15; the wide kernels (K2, K3w,
    K5) timed at k = 25, and checked for equality at k = 16 (no plane B)
-   and k = 31 on a 2^18-row table. K4 and K5 are checked and timed twice:
+   and k = 31 on a 2^18-row table. K1 and K2 are checked with canonical
+   off and on, K2 at k = 25 also at the main path's padded width (152 bp,
+   W = 128). K4 and K5 are checked and timed twice:
    after a 4-batch seed pass (~3 lanes per row) and again after fresh
    batches fill at least 40M slots (~19 lanes per row, near the end of
    phase 4's stream). K3 and K3w also run once on a stream of 20.2M
@@ -54,10 +66,11 @@ Phases, each of which fails the run on error:
 6. Only with --profile: phases 4 and 5 again on the same files, each one
    whole run under torch.profiler (CPU and CUDA activities), whose totals
    must equal theirs and whose device events must hold every launch of the
-   path's kernels that phases 4 and 5 counted. For each it prints the wall time, the device busy
-   time (the union of the intervals of device events), the idle share and
-   the device time by kernel or copy name (the 15 largest). The profiler
-   slows the host, so an idle share from this phase is an upper bound.
+   path's kernels that phases 4 and 5 counted. For each it prints the wall
+   time, the device busy time (the union of the intervals of device
+   events), the idle share and the device time by kernel or copy name (the
+   15 largest, and each kernel of the path). The profiler slows the host,
+   so an idle share from this phase is an upper bound.
 
 Standard output ends with one JSON line of per-kernel results, then
 {"ok": true, "device": {...}} as the last line. Without CUDA, or outside a
@@ -98,6 +111,7 @@ HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 L2_FLUSH_BYTES = 64 << 20  # > the H100's 50 MB L2
 HOLD_CALIBRATION_CYCLES = 1 << 21  # torch.cuda._sleep cycles timed once
 HOLD_ATTEMPTS = 3         # time_ms runs whose hold may run out
+PROFILE_ATTEMPTS = 3      # profiles that may lose events
 LONG_SCAN = 20_000_000    # phase 2's long scan stream (~4,900 tiles)
 LONG_RUN = 200_000        # one code repeated across ~49 tiles in it
 
@@ -252,6 +266,47 @@ def time_ms(fn, setup=None, iters=10, warmup=2) -> tuple[float, float]:
                          f"enqueued {iters} calls in {HOLD_ATTEMPTS} runs")
 
 
+def profiled_ms(tag: str, fn, setup=None, iters=10) -> float:
+    """Mean duration of the device events whose name holds `tag` over
+    `iters` calls of fn(), each after setup(), under torch.profiler. A
+    profile that holds fewer such events than calls is taken again; it
+    fails after PROFILE_ATTEMPTS such profiles."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                if setup:
+                    setup()
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and tag in e.name]
+        if len(us) >= iters:
+            return sum(us) / len(us) / 1e3
+        print(f"profiled_ms: the profile holds {len(us)} events {tag!r} "
+              f"for {iters} calls; profiling again")
+    raise AssertionError(f"{PROFILE_ATTEMPTS} profiles lost events {tag!r}")
+
+
+def kernel_ms(name: str, fn, setup=None) -> float:
+    """Kernel `name`'s own device duration per call (its DEVICE_FUNCTIONS
+    events), without the launch gaps and the setup's write-backs that
+    time_ms's event windows also hold."""
+    return profiled_ms(f"::{DEVICE_FUNCTIONS[name]}(", fn, setup)
+
+
+def copy_ms(work_bytes: int, setup) -> float:
+    """Device duration of a device-to-device copy of work_bytes / 2 bytes
+    (work_bytes moved in all) after setup(): what moving a kernel's bytes
+    costs the card in the same L2 state, a floor for its kernel_ms."""
+    src = torch.empty(work_bytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return profiled_ms("Memcpy DtoD", lambda: dst.copy_(src), setup)
+
+
 def time_synced_ms(fn, setup=None, iters=3, warmup=1) -> float:
     """Mean time of fn() between CUDA events with a synchronise after each
     call, host enqueue included: for plain versions and torch calls, which
@@ -312,26 +367,37 @@ def read_batches(rng, dev, n_batches: int):
 def report(out: dict, label: str):
     for name, r in out.items():
         print(f"{label}: {name}: max_abs_err {r['max_abs_err']}, kernel "
-              f"{r['ms']:.4f} ms (host enqueue {r['host_ms']:.4f} ms), plain "
+              f"{r['ms']:.4f} ms (its own duration {r['kernel_ms']:.4f} ms, "
+              f"host enqueue {r['host_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['work_bytes']:,} bytes), share {r['share']:.3f}")
+              f"({r['work_bytes']:,} bytes), share {r['share']:.3f}, "
+              f"kernel_share {r['kernel_share']:.3f}"
+              + ("" if r["copy_ms"] is None else
+                 f"; a copy of its bytes after the flush {r['copy_ms']:.4f}"
+                 " ms"))
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
-        if r["share"] > 1:
+        if r["share"] > 1 or r["kernel_share"] > 1:
             raise AssertionError(f"{name}: faster than its bound; the "
                                  "timing is wrong")
 
 
-def timed(fn, plain, work_bytes: int, err: int, setup=None) -> dict:
-    """A kernel's row of the kernels line: its time and its plain version's
-    on the same inputs, and its bound, the bytes its work needs (each input
-    read once, each output written once) over the card's memory rate."""
+def timed(name: str, fn, plain, work_bytes: int, err: int, setup=None,
+          flushed=False) -> dict:
+    """Kernel `name`'s row of the kernels line: its time (event window and
+    its own duration) and its plain version's on the same inputs, and its
+    bound, the bytes its work needs (each input read once, each output
+    written once) over the card's memory rate. With flushed (setup is an
+    L2 flush), also copy_ms, a copy of the same bytes after the flush."""
     ms, host_ms = time_ms(fn, setup=setup)
+    own_ms = kernel_ms(name, fn, setup=setup)
     bound = work_bytes / HBM_BYTES_PER_MS
-    return dict(max_abs_err=err, ms=ms, host_ms=host_ms,
+    return dict(max_abs_err=err, ms=ms, kernel_ms=own_ms, host_ms=host_ms,
                 plain_ms=time_synced_ms(plain, setup=setup),
                 bound_ms=bound, bound_by="bytes", share=bound / ms,
-                library_ms=None, work_bytes=work_bytes)
+                kernel_share=bound / own_ms, library_ms=None,
+                copy_ms=copy_ms(work_bytes, setup) if flushed else None,
+                work_bytes=work_bytes)
 
 
 def upsert_work(rows, codes, fp_planes, stats, n_elems: int,
@@ -356,7 +422,8 @@ def upsert_work(rows, codes, fp_planes, stats, n_elems: int,
                    f"matched, {inserted:,} inserted, {dropped:,} dropped)")
 
 
-def check_and_time_upsert(label, planes, kernel, plain, work) -> dict:
+def check_and_time_upsert(name, label, planes, kernel, plain,
+                          work) -> dict:
     """An upsert kernel against its plain version in seed and count mode
     (planes and outputs equal), then both timed in count mode from the same
     starting planes. planes: the tensors the upsert updates in place (None
@@ -382,8 +449,8 @@ def check_and_time_upsert(label, planes, kernel, plain, work) -> dict:
     print(f"{label}: inserted {int(got[1][1]):,}, dropped "
           f"{int(got[1][0]):,}, high windows {int(got[0].sum()):,}; "
           f"work: {detail}")
-    out = timed(lambda: kernel(planes, False), lambda: plain(planes, False),
-                nbytes, max(errs), setup=reset)
+    out = timed(name, lambda: kernel(planes, False),
+                lambda: plain(planes, False), nbytes, max(errs), setup=reset)
     del start, twins
     return out
 
@@ -453,18 +520,21 @@ def phase_kernels(rng, dev) -> dict:
     out = {}
     n = skey.numel()
     flush = l2_flush(dev)
-    err = max_abs_err([(key, encode_keys_plain(bases, lengths, k, False))])
+    err = max_abs_err([(encode_keys(bases, lengths, k, c),
+                        encode_keys_plain(bases, lengths, k, c))
+                       for c in (False, True)])
     out["encode_keys"] = timed(
-        lambda: encode_keys(bases, lengths, k, False),
+        "encode_keys", lambda: encode_keys(bases, lengths, k, False),
         lambda: encode_keys_plain(bases, lengths, k, False),
-        bases.numel() + 4 * reads + 4 * key.numel(), err, setup=flush)
+        bases.numel() + 4 * reads + 4 * key.numel(), err, setup=flush,
+        flushed=True)
     skw = dict(fp_bits=table.fp_bits, n_reads=reads)
     err = max_abs_err(zip(rank_cand_scan(skey, srid, **skw),
                           rank_cand_scan_plain(skey, srid, **skw)))
     out["rank_cand_scan"] = timed(
-        lambda: rank_cand_scan(skey, srid, **skw),
+        "rank_cand_scan", lambda: rank_cand_scan(skey, srid, **skw),
         lambda: rank_cand_scan_plain(skey, srid, **skw), 16 * n, err,
-        setup=flush)
+        setup=flush, flushed=True)
     del flush
     print(f"phase 2: rank_cand_scan look-back depth on the batch: "
           f"{lookback_depth(skey, table.fp_bits)}")
@@ -474,7 +544,7 @@ def phase_kernels(rng, dev) -> dict:
         valid = ukey[(ukey != 0xFFFFFFFF)
                      & ((ukey >> table.fp_bits) < table.rows)]
         return check_and_time_upsert(
-            label, planes,
+            "bucket_batch", label, planes,
             lambda pl, seed: bucket_upsert(*pl, skey, p2, p3, seed=seed,
                                            **kw),
             lambda pl, seed: bucket_upsert_plain(*pl, skey, p2, p3,
@@ -515,6 +585,8 @@ def phase_kernels_wide(rng, dev) -> dict:
     reads, depth = BATCH_READS, 100
     batches = read_batches(rng, dev, 5)
     lengths = torch.full((reads,), 150, dtype=torch.int32, device=dev)
+    pad_gen = torch.Generator(device=dev)
+    pad_gen.manual_seed(SEED + 5)
     out = {}
     for k in (25, 16, 31):
         timed_k = k == 25
@@ -555,7 +627,7 @@ def phase_kernels_wide(rng, dev) -> dict:
             w1, w2 = w1[ok], w2[ok]
             n_fp = 1 if planes[1] is None else 2
             return check_and_time_upsert(
-                label, planes,
+                "bucket_batch_wide", label, planes,
                 lambda pl, seed: bucket_upsert_wide(*pl, sk1, sk2, *scan,
                                                     seed=seed, **kw),
                 lambda pl, seed: bucket_upsert_wide_plain(
@@ -564,8 +636,16 @@ def phase_kernels_wide(rng, dev) -> dict:
                     w1 >> table.row_shift, (w1 << 32) | w2,
                     [start[0], start[1]][:n_fp], stats, n, 4, reads))
 
-        res = {"encode_keys_wide": max_abs_err(
-            zip(words, encode_keys_wide_plain(bases, lengths, k, False)))}
+        widths = [bases]
+        if timed_k:  # the main path's width at k = 25: 152 bp, W = 128
+            pad = torch.randint(0, 4, (reads, 2), dtype=torch.uint8,
+                                device=dev, generator=pad_gen)
+            widths.append(torch.cat([bases, pad], 1))
+        pairs = []
+        for b, c in itertools.product(widths, (False, True)):
+            pairs += zip(encode_keys_wide(b, lengths, k, c),
+                         encode_keys_wide_plain(b, lengths, k, c))
+        res = {"encode_keys_wide": max_abs_err(pairs)}
         res["rank_cand_scan_wide"] = max_abs_err(zip(
             scan, rank_cand_scan_plain(sk1, srid, skey2=sk2, **scan_kw)))
         bucket = bucket_out(sk1, sk2, scan, f"phase 2 (k={k}, 4-batch fill)")
@@ -581,13 +661,16 @@ def phase_kernels_wide(rng, dev) -> dict:
         w = words[0].shape[1]
         flush = l2_flush(dev)
         out["encode_keys_wide"] = timed(
+            "encode_keys_wide",
             lambda: encode_keys_wide(bases, lengths, k, False),
             lambda: encode_keys_wide_plain(bases, lengths, k, False),
-            bases.numel() + 4 * reads + 8 * reads * w, 0, setup=flush)
+            bases.numel() + 4 * reads + 8 * reads * w, 0, setup=flush,
+            flushed=True)
         out["rank_cand_scan_wide"] = timed(
+            "rank_cand_scan_wide",
             lambda: rank_cand_scan(sk1, srid, skey2=sk2, **scan_kw),
             lambda: rank_cand_scan_plain(sk1, srid, skey2=sk2, **scan_kw),
-            20 * n, 0, setup=flush)
+            20 * n, 0, setup=flush, flushed=True)
         del flush
         print(f"phase 2 (k=25): rank_cand_scan_wide look-back depth on the "
               f"batch: {lookback_depth(sk1, table.row_shift)}")
@@ -836,8 +919,10 @@ def phase_profile(dev, k: int, files, want: tuple, launches: dict,
     for name, a, b in events:
         by_name[name][0] += b - a
         by_name[name][1] += 1
-    for name, (us, count) in sorted(by_name.items(),
-                                    key=lambda x: -x[1][0])[:15]:
+    ranked = sorted(by_name.items(), key=lambda x: -x[1][0])
+    tags = [f"::{DEVICE_FUNCTIONS[n]}(" for n in launches]
+    for name, (us, count) in ranked[:15] + [
+            x for x in ranked[15:] if any(t in x[0] for t in tags)]:
         print(f"{label}:   {us / 1e3:9.3f} ms  {count:6d} x "
               f"{us / 1e3 / count:8.4f} ms  {name[:90]}")
 

@@ -12,16 +12,20 @@
 //              else (0xFFFFFFFF, 0xFFFFFFFF) (the sentinel pair)
 // A real w2 is < 2^(2k-32) <= 2^30, so w2 != 0xFFFFFFFF is validity.
 //
-// Bound on the H100: memory. Each window reads k bytes and writes 8, so at
-// 16384 reads x 150 bp and k = 25 the kernel moves ~2.5 MB in and ~16 MB
-// out; the k-fold re-read of bases hits L1 because neighbouring threads take
-// neighbouring windows of one read. Design: one thread per (read, window);
-// the code is built in a uint64_t, so the canonical min is one 64-bit
-// compare (the TPU's (hi, lo) compare); the three Feistel rounds run inline
-// in 32-bit arithmetic; two coalesced int32 stores.
-#include "common.cuh"
+// Bound on the H100: memory. Each read's bases are read once and each window
+// writes 8 bytes, so at 16384 reads x 150 bp and k = 25 the kernel moves
+// ~2.5 MB in and ~16 MB out. Design (csrc/encode_rows.cuh): a block owns
+// whole rows, stages their bases with 16-byte loads and packs them into
+// 2-bit words once; a window's code is a funnel shift of three packed words
+// into a uint64_t and its reverse complement a 64-bit bit reversal, so
+// every window costs the same whatever k is, and the canonical min is one
+// 64-bit compare (the TPU's (hi, lo) compare); the three Feistel rounds run
+// inline in 32-bit arithmetic; both words leave as int4 stores.
+#include "encode_rows.cuh"
 
 namespace {
+
+using namespace nkm_encode;
 
 constexpr uint32_t kC1 = 0x7FEB352Du;  // ops/mix.py _C1 | 1
 constexpr uint32_t kC2 = 0x846CA68Bu;  // ops/mix.py _C2 | 1
@@ -40,28 +44,25 @@ __device__ __forceinline__ uint32_t mix32_full(uint32_t x) {
   return x;
 }
 
-__global__ void encode_keys_wide_kernel(const uint8_t* __restrict__ bases,
-                                        const int32_t* __restrict__ lengths,
-                                        int R, int L, int W, int k,
-                                        bool canonical,
-                                        int32_t* __restrict__ w1_out,
-                                        int32_t* __restrict__ w2_out) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<int64_t>(R) * W) return;
-  const int r = static_cast<int>(t / W);
-  const int w = static_cast<int>(t - static_cast<int64_t>(r) * W);
-  const int len = min(max(lengths[r], 0), 1023);
-  const uint8_t* b = bases + static_cast<int64_t>(r) * L + w;
-  uint64_t code = 0, rc = 0;
-  for (int j = 0; j < k; ++j) {
-    const uint64_t x = b[j];
-    code = (code << 2) | x;
-    rc |= (x ^ 3u) << (2 * j);
-  }
-  if (canonical && rc < code) code = rc;
-  uint32_t w1 = kSentinel, w2 = kSentinel;
-  if (w <= len - k && code != 0) {  // poly-A windows (code 0) are dropped
-    const int nb = 2 * k;
+__global__ void __launch_bounds__(kThreads)
+    encode_keys_wide_kernel(const uint8_t* __restrict__ bases,
+                            const int32_t* __restrict__ lengths, int R,
+                            int L, int W, int k, bool canonical, Geometry g,
+                            int32_t* __restrict__ w1_out,
+                            int32_t* __restrict__ w2_out) {
+  __shared__ Shared sh;
+  const int n = stage_rows(sh, bases, lengths, R, L, k, g);
+  int32_t* const out[2] = {w1_out, w2_out};
+  const int nb = 2 * k;
+  write_windows<2>(sh, n, L, W, k, g, out,
+                   [&](const uint32_t* row, int w, bool in_len,
+                       uint32_t (&v)[2]) {
+    uint64_t code = window64(row, w, k);
+    if (canonical) {
+      const uint64_t rc = revcomp64(code, k);
+      if (rc < code) code = rc;
+    }
+    uint32_t w1, w2;
     if (nb == 32) {  // k = 16: the code fits one word; w2 = 0
       w1 = mix32_full(static_cast<uint32_t>(code));
       w2 = 0;
@@ -75,9 +76,11 @@ __global__ void encode_keys_wide_kernel(const uint8_t* __restrict__ bases,
       w1 = (right << 1) | (left >> (nb - 32));
       w2 = left & ((1u << (nb - 32)) - 1u);
     }
-  }
-  w1_out[t] = static_cast<int32_t>(w1);
-  w2_out[t] = static_cast<int32_t>(w2);
+    // poly-A windows (code 0) are dropped
+    const bool valid = in_len && code != 0;
+    v[0] = valid ? w1 : kSentinel;
+    v[1] = valid ? w2 : kSentinel;
+  });
 }
 
 }  // namespace
@@ -90,14 +93,13 @@ NKM_EXPORT int nkm_encode_keys_wide(const void* bases, const void* lengths,
   if (err) return err;
   if (k < 16 || k > 31) return cudaErrorInvalidValue;
   const int W = L - k + 1;
-  const int64_t n = static_cast<int64_t>(R) * W;
-  if (n > 0) {
-    const int threads = 256;
-    const int64_t blocks = (n + threads - 1) / threads;
-    encode_keys_wide_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+  if (R > 0 && W > 0) {
+    const Geometry g =
+        geometry(R, L, W, resident_blocks(encode_keys_wide_kernel, device));
+    encode_keys_wide_kernel<<<g.blocks, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(bases),
-        static_cast<const int32_t*>(lengths), R, L, W, k, canonical != 0,
+        static_cast<const int32_t*>(lengths), R, L, W, k, canonical != 0, g,
         static_cast<int32_t*>(w1), static_cast<int32_t*>(w2));
   }
   return static_cast<int>(cudaGetLastError());

@@ -47,16 +47,70 @@ def _reads(rng, n, length, pool=None):
     return bases, lengths
 
 
-@pytest.mark.parametrize("k", [5, 9, 15])
+ENCODE_LS = ["k", 37, 100, 150, 152, 1100]  # W = 1; L not a multiple of
+# 4 or 16; the main path's 150 and 152 (W a multiple of 8); L > 1023
+
+
+def _encode_on_card(dev, k, canonical, bases, lengths, offset=0):
+    """The kernel and the plain version on the same tensors; bases as a
+    contiguous view `offset` bytes into its storage."""
+    R, L = bases.shape
+    store = torch.zeros(R * L + offset, dtype=torch.uint8, device=dev)
+    store[offset:] = torch.from_numpy(bases.reshape(-1)).to(dev)
+    b = store[offset:].view(R, L)
+    assert b.data_ptr() % 16 == offset % 16 and b.is_contiguous()
+    ln = torch.from_numpy(lengths).to(dev)
+    if k <= 15:
+        got, want = (encode_keys(b, ln, k, canonical),), \
+            (encode_keys_plain(b, ln, k, canonical),)
+    else:
+        got = encode_keys_wide(b, ln, k, canonical)
+        want = encode_keys_wide_plain(b, ln, k, canonical)
+    torch.cuda.synchronize()
+    for a, c in zip(got, want):
+        assert a.shape == (R, L - k + 1) and torch.equal(a, c)
+    return got[-1]
+
+
+def _encode_reads(rng, k, L, R=1000):
+    """Reads as _reads, with rows of length 0, k - 1 and 5000 (clipped to
+    1023), poly-A and poly-T rows."""
+    bases, lengths = _reads(rng, R, L)
+    lengths[:3] = [0, k - 1, 5000]
+    bases[3], lengths[3] = 0, L
+    bases[4], lengths[4] = 3, L
+    return bases, lengths
+
+
+def _check_encode(dev, k, canonical):
+    for L in ENCODE_LS:
+        L = k if L == "k" else L
+        bases, lengths = _encode_reads(np.random.default_rng(k * L), k, L)
+        last = _encode_on_card(dev, k, canonical, bases, lengths)
+        assert (last[:2] == -1).all() and (last[3] == -1).all()
+        assert bool((last[4] == -1).all()) == canonical
+        if L > 1023:  # length 5000 clips to 1023
+            assert (last[2, 1024 - k:] == -1).all()
+
+
+@pytest.mark.parametrize("k", range(5, 16))
 @pytest.mark.parametrize("canonical", [False, True])
 def test_encode_kernel_matches_plain(dev, k, canonical):
-    bases, lengths = _reads(np.random.default_rng(k), 1000, 150)
-    bases[3] = 0
-    bases[4] = 3
-    b, ln = torch.from_numpy(bases).to(dev), torch.from_numpy(lengths).to(dev)
-    got = encode_keys(b, ln, k, canonical)
-    torch.cuda.synchronize()
-    assert torch.equal(got, encode_keys_plain(b, ln, k, canonical))
+    """Every k of the narrow path at every width of ENCODE_LS."""
+    _check_encode(dev, k, canonical)
+
+
+@pytest.mark.parametrize("k", [5, 8, 15, 16, 17, 25, 31])
+def test_encode_kernels_rows_and_views(dev, k):
+    """R = 0 (no launch), R = 1, R = 997 (a prime: no rows per block
+    divides it), and bases views that start 1, 3 and 9 bytes into their
+    storage (16-byte loads over an unaligned span)."""
+    rng = np.random.default_rng(k)
+    for R, offset in ((0, 0), (1, 0), (997, 0), (997, 1), (1, 3), (64, 9)):
+        for L in (k, 37, 152, 1100):
+            bases, lengths = _reads(rng, max(R, 1), L)
+            bases, lengths = bases[:R], lengths[:R]
+            _encode_on_card(dev, k, True, bases, lengths, offset)
 
 
 def test_scan_kernel_matches_plain(dev):
@@ -329,19 +383,11 @@ def test_bucket_kernel_matches_plain(dev, lanes, seed, case):
 # ----------------------------------------------------------------------
 # wide kernels (k = 16..31): K2, K3w, K5
 
-@pytest.mark.parametrize("k", [16, 25, 31])
+@pytest.mark.parametrize("k", range(16, 32))
 @pytest.mark.parametrize("canonical", [False, True])
 def test_encode_wide_kernel_matches_plain(dev, k, canonical):
-    bases, lengths = _reads(np.random.default_rng(k), 1000, 150)
-    bases[3] = 0
-    bases[4] = 3
-    lengths[5] = k - 1
-    b, ln = torch.from_numpy(bases).to(dev), torch.from_numpy(lengths).to(dev)
-    got = encode_keys_wide(b, ln, k, canonical)
-    want = encode_keys_wide_plain(b, ln, k, canonical)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert (got[1][3] == -1).all() and (got[1][5] == -1).all()
+    """Every k of the wide path at every width of ENCODE_LS."""
+    _check_encode(dev, k, canonical)
 
 
 def _wide_stream(dev, k, n=300_000, seed=0):
