@@ -48,7 +48,10 @@ Phases, each of which fails the run on error:
    elements in which one code repeats 200,000 times (its rank saturates
    through the scan's look-back), equal to the plain version exactly.
    For K3 and K3w it also prints how far back their look-back must reach
-   on the timed batch.
+   on the timed batch. Past the old 2^21-row ceiling of the wide table, K3w
+   and K5 are checked for equality (not timed) at row_shift 10 (2^22 rows)
+   and 8 (2^24 rows, 12 GiB of planes) on one k = 25 batch into a table
+   seeded by three.
 3. Golden parity: the port's CLI on tests/data/{a1,b1}.fasta -t fa -o fa
    -d 4 --device cuda is byte-identical to tests/golden/fasta_in_paired_k15
    at -k 15 and to tests/golden/fasta_in_paired_k25_jax (made by the JAX
@@ -66,11 +69,35 @@ Phases, each of which fails the run on error:
 6. Only with --profile: phases 4 and 5 again on the same files, each one
    whole run under torch.profiler (CPU and CUDA activities), whose totals
    must equal theirs and whose device events must hold every launch of the
-   path's kernels that phases 4 and 5 counted. For each it prints the wall
+   path's kernels that phases 4 and 5 counted (a profile that lost events
+   is taken again, three times at most). For each it prints the wall
    time, the device busy time (the union of the intervals of device
    events), the idle share and the device time by kernel or copy name (the
    15 largest, and each kernel of the path). The profiler slows the host,
    so an idle share from this phase is an upper bound.
+7. The ceiling: a second 1,000,000-pair file pair from its own generator,
+   and -k 25 on both pairs (-f r1 s1 -r r2 s2, 2,000,000 pairs, otherwise
+   as phase 5). The wide table must end above 2^21 rows with no dropped
+   insert and every pair processed; it prints the rows, the distinct
+   k-mers, the plane bytes, the peak device memory and the wall time.
+8. Relaxed mode: phase 4's input at -k 15 and -k 25 with --mode relaxed.
+   The table planes must equal the exact runs' (phases 4 and 5) lane for
+   lane, and processed and distinct k-mers theirs; at most 1 % of the
+   pairs may change their keep decision. Also the sort of one main-path
+   batch in both modes (torch.sort; not a kernel of the port).
+9. Checkpoints: the first 20,000 pairs at -k 15 and -k 25, -d 5 (so that
+   the decisions depend on the counts carried across the resume), with
+   --checkpoint-every 1 (--batch-reads 2048), interrupted after the third
+   retire, then resumed: byte-identical to an uninterrupted cuda run; the
+   same checkpoint resumed with --device cpu gives the same bytes.
+10. The debug tiers: tests/data/{a1,b1}.fasta -t fa -o fa -k 15 -d 4
+   --debug 4 on cuda and on cpu: stdout equal line for line but for the
+   wall-clock lines, the batch round-trip passing on every batch.
+
+Every phase prints "phase N: start" first; a phase that fails prints its
+name and the traceback on standard output, and the script exits non-zero.
+Phases 7 to 10 each zero the kernel launch counts before their runs and
+fail if a kernel of their path was never launched.
 
 Standard output ends with one JSON line of per-kernel results, then
 {"ok": true, "device": {...}} as the last line. Without CUDA, or outside a
@@ -86,6 +113,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -94,6 +123,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -114,6 +144,12 @@ HOLD_ATTEMPTS = 3         # time_ms runs whose hold may run out
 PROFILE_ATTEMPTS = 3      # profiles that may lose events
 LONG_SCAN = 20_000_000    # phase 2's long scan stream (~4,900 tiles)
 LONG_RUN = 200_000        # one code repeated across ~49 tiles in it
+LARGE_ROW_SHIFTS = (10, 8)  # phase 2's wide tables of 2^22 and 2^24 rows
+OLD_CEILING_ROWS = 1 << 21  # phase 7's table must grow past it
+RELAXED_MAX_DELTA = 0.01  # phase 8: largest share of changed decisions
+CKPT_BATCH_PAIRS = 2048   # phase 9: 10 batches of the 20,000 pairs
+CKPT_DEPTH = 5            # phase 9: low enough that pairs are skipped
+CKPT_STOP_AFTER = 3       # phase 9: retires before the interrupt
 
 REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
     "encode_keys": "nomalise_kmers_multi_large_tpu/ops/encode_kernel.py:289",
@@ -753,6 +789,63 @@ def phase_scan_long(dev):
     torch.cuda.empty_cache()
 
 
+def phase_kernels_large(rng, dev):
+    """K3w and K5 against their plain versions on wide tables past the old
+    2^21-row ceiling (LARGE_ROW_SHIFTS), at k = 25: three batches seeded by
+    the kernels, then one batch scanned and upserted (count mode) by the
+    kernels and by the plain versions on a copy of the planes. Exact
+    equality; no timing."""
+    from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
+        bucket_upsert_wide, bucket_upsert_wide_plain, sort_stream_wide,
+    )
+    from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
+        encode_keys_wide,
+    )
+    from nomalise_kmers_multi_large_torch.ops.segscan import (
+        rank_cand_scan, rank_cand_scan_plain,
+    )
+    from nomalise_kmers_multi_large_torch.table.bucket import BucketTableWide
+
+    k, reads, depth = 25, BATCH_READS, 100
+    lengths = torch.full((reads,), 150, dtype=torch.int32, device=dev)
+    batches = read_batches(rng, dev, 4)
+    for row_shift in LARGE_ROW_SHIFTS:
+        table = BucketTableWide(k, rows=1 << (32 - row_shift), device=dev)
+        state = table.init()
+        planes = [state.keys, state.keys2, state.counts]
+        kw = dict(row_shift=row_shift, depth=depth, n_reads=reads)
+        scan_kw = dict(fp_bits=0, n_reads=reads, row_shift=row_shift)
+        for i, bases in enumerate(batches):
+            w1, w2 = encode_keys_wide(bases, lengths, k, False)
+            sk1, sk2, srid = sort_stream_wide(w1.reshape(-1), w2.reshape(-1),
+                                              w1.shape[1])
+            scan = rank_cand_scan(sk1, srid, skey2=sk2, **scan_kw)
+            if i < 3:
+                bucket_upsert_wide(*planes, sk1, sk2, *scan, seed=True, **kw)
+        err = {"rank_cand_scan_wide": max_abs_err(zip(
+            scan, rank_cand_scan_plain(sk1, srid, skey2=sk2, **scan_kw)))}
+        seeded = int((state.keys != 0).sum())
+        twins = [x.clone() for x in planes]
+        got = bucket_upsert_wide(*planes, sk1, sk2, *scan, seed=False, **kw)
+        want = bucket_upsert_wide_plain(*twins, sk1, sk2, *scan, seed=False,
+                                        **kw)
+        err["bucket_batch_wide"] = max_abs_err([*zip(planes, twins),
+                                                *zip(got, want)])
+        print(f"phase 2 (row_shift {row_shift}): k={k} table "
+              f"{table.rows:,} rows x {table.lanes} lanes "
+              f"({3 * 4 * table.capacity:,} bytes of planes), {seeded:,} "
+              f"slots seeded by 3 batches; a batch of {reads:,} reads: "
+              f"inserted {int(got[1][1]):,}, dropped {int(got[1][0]):,}, "
+              f"high windows {int(got[0].sum()):,}; max_abs_err {err}")
+        if any(err.values()) or int(got[1][1]) == 0:
+            raise AssertionError(f"row_shift {row_shift}: a wide kernel "
+                                 f"disagrees with its plain version: {err}")
+        del state, planes, twins, got, want
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.empty_cache()
+
+
 def phase_golden(k: int, case: str):
     from nomalise_kmers_multi_large_torch import cli
 
@@ -791,21 +884,47 @@ def write_inputs(rng):
     return (f1, f2), tuple(sub)
 
 
-def run_engine(k: int, device, files, sub: str):
-    """Normalizer.run() at -k `k` with the reference defaults on `files`,
-    writing under WORK; returns (normalizer, report, out dir, first rows)."""
+def run_engine(k: int, device, files, sub: str, extra=(), run=True):
+    """Normalizer.run() at -k `k` with the reference defaults on `files`
+    (forward, reverse; either may be a list of files) and the options
+    `extra`, writing under WORK; returns (normalizer, report, out dir,
+    first rows). With run=False the normalizer is returned unrun (report
+    None)."""
     from nomalise_kmers_multi_large_torch.cli import config_from_args
     from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 
+    fwd, rev = ([f] if isinstance(f, str) else list(f) for f in files)
     out = os.path.join(WORK, f"k{k}_{sub}")
-    cfg, _ = config_from_args(["-f", files[0], "-r", files[1], "-k", str(k),
+    cfg, _ = config_from_args(["-f", *fwd, "-r", *rev, "-k", str(k),
                                "-d", "100", "-g", "0.9", "-p", "1",
                                "--batch-reads", "8192", "-e",
-                               "--out-dir", out])
+                               "--out-dir", out, *extra])
     norm = Normalizer(cfg, device)
     rows0 = norm.tables[0].rows
-    rep = norm.run()
+    rep = norm.run() if run else None
     return norm, rep, out, rows0
+
+
+def kept_ids(out: str, k: int) -> np.ndarray:
+    """Pair ids of the kept forward records of a run on this script's
+    FASTQ (fixed 315-byte records @p<7-digit id>/1)."""
+    path = os.path.join(out, f"output_forward.k{k}_norm100_thread0.fastq")
+    rec = np.fromfile(path, np.uint8).reshape(-1, 315)
+    return (rec[:, 1:8].astype(np.int64) - 48) @ 10 ** np.arange(6, -1, -1)
+
+
+def require_launches(label: str, k: int) -> dict:
+    """The launch counts since the last reset; fails unless every kernel of
+    the k path launched."""
+    from nomalise_kmers_multi_large_torch import backend
+
+    launches = backend.launches()
+    path = PATH_KERNELS[15 if k <= 15 else 25]
+    missing = [n for n in path if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the k={k} "
+                             f"path: {missing}")
+    return {n: launches[n] for n in path}
 
 
 def totals(rep) -> tuple[int, int, int]:
@@ -814,7 +933,8 @@ def totals(rep) -> tuple[int, int, int]:
 
 def phase_main(dev, k: int, files, check_files, label: str):
     """The engine at -k `k` on the phase-4 files; returns the launches of
-    the run and its totals (processed, printed, distinct k-mers)."""
+    the run, its totals (processed, printed, distinct k-mers) and, for
+    phase 8, its final table planes and kept pair ids."""
     from nomalise_kmers_multi_large_torch import backend
 
     backend.reset_launches()
@@ -823,7 +943,7 @@ def phase_main(dev, k: int, files, check_files, label: str):
     norm, rep, out, rows0 = run_engine(k, dev, files, "main")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = backend.launches()
+    launches = require_launches(label, k)
     t = norm.tables[0]
     st = norm.states[0]
     slot_bytes = 12 if k > 16 else 8
@@ -850,10 +970,7 @@ def phase_main(dev, k: int, files, check_files, label: str):
     if lines != 4 * rep.total_printed:
         raise AssertionError(f"{lines} output lines for "
                              f"{rep.total_printed} printed pairs")
-    missing = [n for n in PATH_KERNELS[k] if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the k={k} path: "
-                             f"{missing}")
+    exact = dict(state=st, rows=t.rows, kept=kept_ids(out, k))
 
     # the same engine on the CPU plain path, on the first pairs
     outs = [run_engine(k, d, check_files, f"check_{d}")[2]
@@ -867,7 +984,7 @@ def phase_main(dev, k: int, files, check_files, label: str):
           "path outputs byte-identical")
     for o in outs + [out]:
         shutil.rmtree(o)
-    return {n: launches[n] for n in PATH_KERNELS[k]}, totals(rep)
+    return launches, totals(rep), exact
 
 
 def busy_us(intervals) -> float:
@@ -888,29 +1005,33 @@ def phase_profile(dev, k: int, files, want: tuple, launches: dict,
     """One whole run of the engine at -k `k` on the phase-4 files under
     torch.profiler; its totals must equal `want`, the unprofiled run's, and
     the profile must hold every launch of the path's kernels that the
-    unprofiled run counted (`launches`), or it lost device events."""
+    unprofiled run counted (`launches`), or it lost device events: then
+    the run is profiled again, PROFILE_ATTEMPTS times at most."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, rep, out, _ = run_engine(k, dev, files, "profile")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    shutil.rmtree(out)
-    if totals(rep) != want:
-        raise AssertionError(f"{label}: profiled totals {totals(rep)} != "
-                             f"the unprofiled run's {want}")
-    events = [(e.name, e.time_range.start, e.time_range.end)
-              for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise AssertionError(f"{label}: the profile holds no device events")
-    seen = {name: sum(f"::{DEVICE_FUNCTIONS[name]}(" in e[0]
-                      for e in events) for name in launches}
-    if seen != launches:
-        raise AssertionError(f"{label}: the profile holds {seen} of the "
-                             f"launches {launches}: it lost device events")
+    for _ in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, rep, out, _ = run_engine(k, dev, files, "profile")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        shutil.rmtree(out)
+        if totals(rep) != want:
+            raise AssertionError(f"{label}: profiled totals {totals(rep)} "
+                                 f"!= the unprofiled run's {want}")
+        events = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {name: sum(f"::{DEVICE_FUNCTIONS[name]}(" in e[0]
+                          for e in events) for name in launches}
+        if seen == launches:
+            break
+        print(f"{label}: k={k}: the profile holds {seen} of the launches "
+              f"{launches}: it lost device events; profiling again")
+    else:
+        raise AssertionError(f"{label}: {PROFILE_ATTEMPTS} profiles lost "
+                             "device events")
     busy = busy_us([(a, b) for _, a, b in events]) / 1e6
     print(f"{label}: k={k}: profiled run, totals and launches as "
           f"unprofiled {want}: wall {wall:.3f} s, device busy {busy:.3f} s, "
@@ -925,6 +1046,222 @@ def phase_profile(dev, k: int, files, want: tuple, launches: dict,
             x for x in ranked[15:] if any(t in x[0] for t in tags)]:
         print(f"{label}:   {us / 1e3:9.3f} ms  {count:6d} x "
               f"{us / 1e3 / count:8.4f} ms  {name[:90]}")
+
+
+def phase_ceiling(dev, files):
+    """-k 25 on phase 4's file pair and a second one of PAIRS pairs from its
+    own generator: the wide table must grow past OLD_CEILING_ROWS and drop
+    nothing."""
+    from nomalise_kmers_multi_large_torch import backend
+
+    f3, f4 = (os.path.join(WORK, name) for name in ("s1.fq", "s2.fq"))
+    t0 = time.perf_counter()
+    write_pairs(np.random.default_rng(SEED + 2), PAIRS, f3, f4)
+    print(f"phase 7: wrote a second {PAIRS:,}-pair file pair in "
+          f"{time.perf_counter() - t0:.1f} s")
+    backend.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    norm, rep, out, rows0 = run_engine(25, dev, ([files[0], f3],
+                                                 [files[1], f4]), "ceiling")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = require_launches("phase 7", 25)
+    t, st = norm.tables[0], norm.states[0]
+    print(f"phase 7: k=25: {rep.total_processed:,} pairs in {wall:.2f} s "
+          f"({rep.total_processed / wall:,.0f} pairs/s), seed pass "
+          f"included; printed {rep.total_printed:,}, skipped "
+          f"{rep.total_skipped:,}; distinct k-mers {rep.max_total_kmers:,}; "
+          f"table grew from {rows0:,} to {t.rows:,} rows x {t.lanes} lanes = "
+          f"{12 * t.capacity:,} bytes of planes; overflow "
+          f"{int(st.overflow)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated():,} bytes; launches {launches}")
+    if t.rows <= OLD_CEILING_ROWS:
+        raise AssertionError(f"phase 7: the table stayed at {t.rows:,} rows")
+    if int(st.overflow) != 0:
+        raise AssertionError(f"phase 7: {int(st.overflow):,} inserts dropped")
+    if not rep.total_processed == rep.total_printed + rep.total_skipped \
+            == 2 * PAIRS:
+        raise AssertionError("phase 7: totals do not add up")
+    del norm, st
+    for path in (out, f3, f4):
+        shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+    torch.cuda.empty_cache()
+
+
+def phase_relaxed(dev, files, exact: dict, want: dict):
+    """--mode relaxed on phase 4's input at k = 15 and 25: the planes equal
+    the exact runs' lane for lane, and the decisions change for at most
+    RELAXED_MAX_DELTA of the pairs. Then the sort of one main-path batch
+    in both modes."""
+    from nomalise_kmers_multi_large_torch import backend
+    from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
+        sort_stream, sort_stream_wide,
+    )
+    from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
+        encode_keys, encode_keys_wide,
+    )
+
+    for k in (15, 25):
+        backend.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        norm, rep, out, _ = run_engine(k, dev, files, "relaxed",
+                                       ["--mode", "relaxed"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = require_launches("phase 8", k)
+        st, ex = norm.states[0], exact[k]
+        same = norm.tables[0].rows == ex["rows"] and all(
+            (a is None and b is None) or torch.equal(a, b)
+            for a, b in zip(st[:2] + st[4:], ex["state"][:2]
+                            + ex["state"][4:]))
+        delta = int(np.setxor1d(kept_ids(out, k), ex["kept"]).size)
+        print(f"phase 8: k={k} relaxed: {rep.total_processed:,} pairs in "
+              f"{wall:.2f} s; printed {rep.total_printed:,} (exact "
+              f"{want[k][1]:,}), decision delta {delta:,} pairs "
+              f"({delta / PAIRS:.4%}); distinct k-mers "
+              f"{rep.max_total_kmers:,} (exact {want[k][2]:,}); planes "
+              f"equal to the exact run's: {same}; launches {launches}")
+        shutil.rmtree(out)
+        if not same:
+            raise AssertionError(f"phase 8: k={k}: relaxed planes differ")
+        if (rep.total_processed, rep.max_total_kmers) != \
+                (want[k][0], want[k][2]):
+            raise AssertionError(f"phase 8: k={k}: totals differ")
+        if delta > RELAXED_MAX_DELTA * PAIRS:
+            raise AssertionError(f"phase 8: k={k}: {delta} decisions changed")
+        del norm, st
+        torch.cuda.empty_cache()
+
+    reads = BATCH_READS
+    lengths = torch.full((reads,), 150, dtype=torch.int32, device=dev)
+    bases = read_batches(np.random.default_rng(SEED + 6), dev, 1)[0]
+    key = encode_keys(bases, lengths, 15, False)
+    rid = torch.arange(key.numel(), device=dev) // key.shape[1]
+    w1, w2 = encode_keys_wide(bases, lengths, 25, False)
+    sorts = {
+        "sort_stream": [time_synced_ms(lambda r=r: sort_stream(
+            key.reshape(-1), rid, r), iters=10) for r in (False, True)],
+        "sort_stream_wide": [time_synced_ms(lambda r=r: sort_stream_wide(
+            w1.reshape(-1), w2.reshape(-1), w1.shape[1], r), iters=10)
+            for r in (False, True)],
+    }
+    for name, (ems, rms) in sorts.items():
+        print(f"phase 8: {name} on one batch of {reads:,} reads "
+              f"(torch.sort, not a kernel of the port; host enqueue "
+              f"included): exact {ems:.4f} ms, relaxed {rms:.4f} ms")
+
+
+def phase_checkpoint(dev, check_files):
+    """The first CHECK_PAIRS pairs at k = 15 and 25 with checkpoints after
+    every batch, interrupted after CKPT_STOP_AFTER retires and resumed on
+    cuda, and from the same checkpoint on the cpu: both byte-identical to
+    an uninterrupted cuda run."""
+    from nomalise_kmers_multi_large_torch import backend
+    from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
+
+    batch = ["--batch-reads", str(CKPT_BATCH_PAIRS), "-d", str(CKPT_DEPTH)]
+    for k in (15, 25):
+        ckpt = os.path.join(WORK, f"ckpt{k}")
+        extra = batch + ["--checkpoint-every", "1", "--checkpoint-dir", ckpt]
+        names = [f"{b}.k{k}_norm{CKPT_DEPTH}_thread0.fastq"
+                 for b in ("output_forward", "output_reverse")]
+
+        def outputs(out):
+            return [open(os.path.join(out, n), "rb").read() for n in names]
+
+        backend.reset_launches()
+        _, full_rep, full_out, _ = run_engine(k, dev, check_files, "ck_full",
+                                              batch)
+        want = outputs(full_out)
+        norm, _, part_out, _ = run_engine(k, dev, check_files, "ck_part",
+                                          extra, run=False)
+        calls, orig = [0], Normalizer._retire
+
+        def bomb(self, *a):
+            r = orig(self, *a)
+            calls[0] += 1
+            if calls[0] == CKPT_STOP_AFTER:
+                raise KeyboardInterrupt
+            return r
+
+        Normalizer._retire = bomb
+        try:
+            norm.run()
+            raise AssertionError("phase 9: the run was not interrupted")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            Normalizer._retire = orig
+        del norm
+        with open(os.path.join(ckpt, "manifest.json")) as f:
+            done = json.load(f)["records_done"]
+        saved = os.path.join(WORK, f"ckpt{k}_saved")
+        shutil.copytree(ckpt, os.path.join(saved, "ckpt"))
+        shutil.copytree(part_out, os.path.join(saved, "out"))
+        got = {}
+        for device in ("cuda", "cpu"):
+            if device == "cpu":  # the checkpoint and outputs as interrupted
+                for src, dst in (("ckpt", ckpt), ("out", part_out)):
+                    shutil.rmtree(dst)
+                    shutil.copytree(os.path.join(saved, src), dst)
+            rep = run_engine(k, device, check_files, "ck_part",
+                             extra + ["--resume"])[1]
+            got[device] = (outputs(part_out), totals(rep))
+        launches = require_launches("phase 9", k)
+        ok = {d: g == (want, totals(full_rep)) for d, g in got.items()}
+        print(f"phase 9: k={k} -d {CKPT_DEPTH}: uninterrupted: printed "
+              f"{full_rep.total_printed:,}, skipped {full_rep.total_skipped:,};"
+              f" interrupted after {CKPT_STOP_AFTER} retires, checkpoint at "
+              f"{done:,} pairs; resumed on cuda and on cpu from it, outputs "
+              f"and totals equal to the uninterrupted cuda run's: {ok}; "
+              f"launches {launches}")
+        if not all(ok.values()) or not 0 < done < CHECK_PAIRS \
+                or not full_rep.total_skipped:
+            raise AssertionError(f"phase 9: k={k}: resume differs: {ok}")
+        for path in (ckpt, saved, full_out, part_out):
+            shutil.rmtree(path)
+
+
+def phase_debug(dev):
+    """--debug 4 on tests/data/{a1,b1}.fasta at -k 15 -d 4, on cuda and on
+    cpu: the same stdout but for the wall-clock lines; the round-trip holds
+    the CUDA encode kernel against the codec on every batch."""
+    from nomalise_kmers_multi_large_torch import backend
+    from nomalise_kmers_multi_large_torch.cli import config_from_args
+    from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
+    from nomalise_kmers_multi_large_torch.engine.report import (
+        without_clock_lines,
+    )
+
+    data = os.path.join(ROOT, "tests", "data")
+    lines = {}
+    for device in ("cuda", "cpu"):
+        cfg, _ = config_from_args([
+            "-f", os.path.join(data, "a1.fasta"), "-r",
+            os.path.join(data, "b1.fasta"), "-t", "fa", "-o", "fa", "-k",
+            "15", "-d", "4", "--debug", "4",
+            "--out-dir", os.path.join(WORK, f"debug_{device}")])
+        backend.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            Normalizer(cfg, device).run()
+        wall = time.perf_counter() - t0
+        if device == "cuda":
+            launches = require_launches("phase 10", 15)
+        lines[device] = without_clock_lines(buf.getvalue())
+        print(f"phase 10: --debug 4 on {device}: {len(lines[device]):,} "
+              f"stdout lines in {wall:.2f} s")
+    same = lines["cuda"] == lines["cpu"]
+    upserts = sum(ln.startswith("DEBUG: ") for ln in lines["cuda"])
+    print(f"phase 10: cuda and cpu stdout equal line for line: {same} "
+          f"({upserts:,} per-upsert lines); round-trip passed on every "
+          f"batch; cuda launches {launches}")
+    if not same or not upserts:
+        raise AssertionError("phase 10: cuda and cpu debug output differ")
 
 
 def ptxas_usage(log: str) -> list[str]:
@@ -954,6 +1291,20 @@ def ptxas_usage(log: str) -> list[str]:
     return out
 
 
+def phase(name: str, fn, *args):
+    """Run one phase: "phase <name>: start" first; on a failure, its name
+    and the traceback on standard output (so a lost stderr cannot hide
+    which phase failed), and the exception goes on."""
+    print(f"phase {name}: start", flush=True)
+    try:
+        return fn(*args)
+    except BaseException:
+        print(f"phase {name}: FAILED", flush=True)
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        raise
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -969,41 +1320,52 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     print(card_line())
-    t0 = time.perf_counter()
-    backend.build()
-    print(f"phase 1: built {sorted(backend.KERNEL_SOURCES)} with nvcc "
-          f"{' '.join(backend.NVCC_FLAGS)} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for src in sorted(set(backend.KERNEL_SOURCES.values())):
-        for line in ptxas_usage(backend.build_log(src)):
-            print(f"phase 1: {src}: {line}")
+
+    def build():
+        t0 = time.perf_counter()
+        backend.build()
+        print(f"phase 1: built {sorted(backend.KERNEL_SOURCES)} with nvcc "
+              f"{' '.join(backend.NVCC_FLAGS)} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for src in sorted(set(backend.KERNEL_SOURCES.values())):
+            for line in ptxas_usage(backend.build_log(src)):
+                print(f"phase 1: {src}: {line}")
+
+    phase("1", build)
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
         rng = np.random.default_rng(SEED)
-        timing = phase_kernels(rng, dev)
+        timing = phase("2", phase_kernels, rng, dev)
         # its own generator, so phase 4's input stays as earlier versions
         # of this script wrote it
-        timing.update(phase_kernels_wide(np.random.default_rng(SEED + 1),
-                                         dev))
-        phase_scan_long(dev)
+        timing.update(phase("2 (wide)", phase_kernels_wide,
+                            np.random.default_rng(SEED + 1), dev))
+        phase("2 (long stream)", phase_scan_long, dev)
+        phase("2 (large tables)", phase_kernels_large,
+              np.random.default_rng(SEED + 7), dev)
         if args.kernels:
             print(json.dumps({"kernels": [
                 {"name": name, "source": src, **timing[name]}
                 for name, src in backend.KERNEL_SOURCES.items()]}))
             return 0
-        phase_golden(15, "fasta_in_paired_k15")
-        phase_golden(25, "fasta_in_paired_k25_jax")
-        files, check_files = write_inputs(rng)
-        launches, want = {}, {}
+        phase("3", phase_golden, 15, "fasta_in_paired_k15")
+        phase("3", phase_golden, 25, "fasta_in_paired_k25_jax")
+        files, check_files = phase("4 (inputs)", write_inputs, rng)
+        launches, want, exact = {}, {}, {}
         for k, label in ((15, "phase 4"), (25, "phase 5")):
-            got, want[k] = phase_main(dev, k, files, check_files, label)
+            got, want[k], exact[k] = phase(label[6:], phase_main, dev, k,
+                                           files, check_files, label)
             launches.update(got)
         if args.profile:
             for k in (15, 25):
-                phase_profile(dev, k, files, want[k],
-                              {n: launches[n] for n in PATH_KERNELS[k]},
-                              "phase 6")
+                phase("6", phase_profile, dev, k, files, want[k],
+                      {n: launches[n] for n in PATH_KERNELS[k]}, "phase 6")
+        phase("7", phase_ceiling, dev, files)
+        phase("8", phase_relaxed, dev, files, exact, want)
+        del exact
+        phase("9", phase_checkpoint, dev, check_files)
+        phase("10", phase_debug, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card_line())

@@ -202,10 +202,7 @@ def port_config(cfg: Config) -> Config:
         raise ConfigError(f"--table {cfg.table} is not ported yet; only the "
                           "bucket table runs")
     unported = [
-        (cfg.mode != "exact", f"--mode {cfg.mode}"),
-        (bool(cfg.checkpoint_every) or cfg.resume,
-         "checkpoints (--checkpoint-every, --resume)"),
-        (cfg.debug > 1, f"--debug {cfg.debug} (only 0 and 1 run)"),
+        (cfg.debug > 4, f"--debug {cfg.debug} (0 to 4 run)"),
         (cfg.spectrum, "--spectrum"),
         (bool(cfg.seed_table), "--seed-table"),
         (cfg.n_devices > 1, f"--devices {cfg.n_devices} (one device only)"),

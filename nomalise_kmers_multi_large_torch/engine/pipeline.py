@@ -16,7 +16,13 @@ while the device runs. Around that loop:
   crosses the headroom;
 - overflow grow-and-replay: a retire that sees new dropped inserts discards
   the dispatch's results, grows the table from a copy taken before that
-  dispatch, and replays the batches on it.
+  dispatch, and replays the batches on it;
+- checkpoints (``--checkpoint-every``, ``--resume``): a snapshot is taken
+  only after a drain, when nothing is staged or in flight, so the table
+  describes exactly the records counted and no replay snapshot is pending;
+- the debug tiers: per-record PRINTED/SKIPPED lines (> 1), per-upsert lines
+  from a host shadow table (> 2), the batch round-trip self-check (>= 3)
+  and the raw record dump (> 3).
 """
 from __future__ import annotations
 
@@ -28,12 +34,18 @@ import numpy as np
 import torch
 
 from nomalise_kmers_multi_large_torch.config import Config, port_config
+from nomalise_kmers_multi_large_torch.engine.checkpoint import (
+    CheckpointManager,
+)
+from nomalise_kmers_multi_large_torch.engine.debug_shadow import UpsertShadow
 from nomalise_kmers_multi_large_torch.engine.report import (
     RunReport,
     ShardCounters,
 )
-from nomalise_kmers_multi_large_torch.engine.step import BatchStep, StepStats
-from nomalise_kmers_multi_large_torch.io.pack import pack_batch
+from nomalise_kmers_multi_large_torch.engine.step import (
+    BatchStep, ReadTallies, StepStats,
+)
+from nomalise_kmers_multi_large_torch.io.pack import LUT, pack_batch
 from nomalise_kmers_multi_large_torch.io.reader import (
     FastxFile,
     RecordBatch,
@@ -44,23 +56,17 @@ from nomalise_kmers_multi_large_torch.io.writer import (
     ShardWriter,
     output_filename,
 )
+from nomalise_kmers_multi_large_torch.ops import codec
+from nomalise_kmers_multi_large_torch.ops.codec import decode_codes
+from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
+    encode_keys, encode_keys_wide,
+)
+from nomalise_kmers_multi_large_torch.ops.mix import (
+    feistel_words_np, mix32_np,
+)
 from nomalise_kmers_multi_large_torch.table import TableState, make_table
 from nomalise_kmers_multi_large_torch.utils.prefetch import PrefetchIterator
 from nomalise_kmers_multi_large_torch.utils.profiling import StageTimer
-
-_BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
-
-
-def decode_codes(hi: np.ndarray, lo: np.ndarray, k: int) -> list[str]:
-    """k-mer strings of 2-bit codes given as (hi, lo) 32-bit words (first
-    base most significant)."""
-    code = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | \
-        np.asarray(lo).astype(np.uint64)
-    out = np.empty((code.shape[0], k), dtype=np.uint8)
-    for i in range(k - 1, -1, -1):
-        out[:, i] = _BASES[(code & np.uint64(3)).astype(np.int64)]
-        code >>= np.uint64(2)
-    return [bytes(row).decode() for row in out]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -70,6 +76,13 @@ def _round_up(x: int, m: int) -> int:
 def _copy(state: TableState) -> TableState:
     """A copy of every plane; an absent plane (keys2 = None) stays None."""
     return TableState(*(None if x is None else x.clone() for x in state))
+
+
+def _slice_batch(batch: RecordBatch, lo: int, hi: int) -> RecordBatch:
+    return RecordBatch(
+        fwd_file=batch.fwd_file, fwd=batch.fwd.slice(lo, hi),
+        rev_file=batch.rev_file,
+        rev=batch.rev.slice(lo, hi) if batch.rev is not None else None)
 
 
 def resolve_device(device) -> torch.device:
@@ -108,7 +121,16 @@ class Normalizer:
         self._overflow_seen = [0] * cfg.shards
         #: shards rewound and regrown by a replay during the current flush
         self._replayed_shards: set[int] = set()
+        #: --debug > 2: one exact host shadow table per shard
+        self._shadows = ([UpsertShadow(cfg.ksize, cfg.canonical)
+                          for _ in range(cfg.shards)]
+                         if cfg.debug > 2 else None)
         self.timer = StageTimer()
+
+    @staticmethod
+    def _record_seq(file, cols, i: int) -> bytes:
+        s0, sl = int(cols.seq_start[i]), int(cols.seq_len[i])
+        return bytes(file.data[s0:s0 + sl])
 
     # ------------------------------------------------------------------
     def _get_step(self, shard: int, paired: bool) -> BatchStep:
@@ -250,6 +272,13 @@ class Normalizer:
                 if take < len(batch):
                     batch = RecordBatch(fwd_file=batch.fwd_file,
                                         fwd=batch.fwd.slice(0, take))
+                if self._shadows is not None:
+                    # the reference prints its debug > 2 upsert lines in the
+                    # seed pass too
+                    for i in range(len(batch)):
+                        self._shadows[0].seed_seq(
+                            self._record_seq(batch.fwd_file, batch.fwd, i),
+                            sys.stdout)
                 # seeding uses the strictly-greater length rule (len > k)
                 with self.timer.stage("seed"):
                     bases, lengths, _ = self._pack(batch, cfg.ksize + 1)
@@ -266,6 +295,9 @@ class Normalizer:
             self.tables[s] = self.tables[0]
             self._used_bound[s] = self._used_bound[0]
             self.states[s] = _copy(self.states[0])
+        if self._shadows is not None:
+            for s in range(1, len(self._shadows)):
+                self._shadows[s] = self._shadows[0].copy()
 
     def _seed_checked(self, bases, lengths):
         """One seed batch, replayed on a grown table if it dropped inserts.
@@ -290,17 +322,36 @@ class Normalizer:
 
     # ------------------------------------------------------------------
     def run(self) -> RunReport:
-        cfg = self.cfg
-        self.seed()
-        if cfg.print_table:
-            self._dump_seed_table()
-        # drops already in the seeded states cannot be replayed
-        self._overflow_seen = [int(st.overflow) for st in self.states]
-        self.writers = [ShardWriter(cfg, s) for s in range(cfg.shards)]
+        try:
+            return self._run()
+        finally:
+            # on any exit: an interrupted run too leaves its output files
+            # flushed (a resume truncates them to the checkpoint's sizes)
+            for w in self.writers or ():
+                w.close()
 
-        rr = 0  # round-robin shard cursor
+    def _run(self) -> RunReport:
+        cfg = self.cfg
+        ckpt = (CheckpointManager(cfg)
+                if cfg.checkpoint_every or cfg.resume else None)
+        resume = self._resume(ckpt) if cfg.resume else None
+        if resume is None:
+            self.seed()
+            if cfg.print_table:
+                self._dump_seed_table()
+        # drops already in the seeded or resumed states cannot be replayed
+        self._overflow_seen = [int(st.overflow) for st in self.states]
+        self.writers = [
+            ShardWriter(cfg, s,
+                        resume_sizes=resume.output_sizes if resume else None)
+            for s in range(cfg.shards)]
+
+        rr = resume.rr if resume else 0  # round-robin shard cursor
         n_rev = len(cfg.reverse_files)
+        since_ckpt = 0  # batches queued since the last checkpoint
         for fi, fpath in enumerate(cfg.forward_files):
+            if resume and fi < resume.file_index:
+                continue
             paired = fi < n_rev
             if paired:
                 print(
@@ -319,7 +370,11 @@ class Normalizer:
                 fx = FastxFile(fpath, cfg.is_input_fastq, cfg.io_threads)
                 it = batch_iterator(fx, cfg.batch_reads)
             sys.stdout.flush()
-            rr = self._stream_file(it, paired, rr)
+            skip = 0
+            if resume and fi == resume.file_index:
+                skip, resume = resume.records_done, None
+            rr, since_ckpt = self._stream_file(it, paired, rr, fi, skip, ckpt,
+                                               since_ckpt)
 
             with self.timer.stage("report"):
                 self._refresh_unique_counts()
@@ -332,11 +387,16 @@ class Normalizer:
                 f"Cumulative Max Unique Kmers in a thread: "
                 f"{self.report.max_total_kmers:,}"
             )
+            if ckpt and cfg.checkpoint_every:
+                self._checkpoint(ckpt, fi + 1, 0, rr)
 
+        if self.report.files_processed == 0:
+            # a resume that found every file done: the restored counters
+            # still hold the run's totals
+            self._refresh_unique_counts()
+            self.report.absorb(self.counters)
         for c in self.counters:
             c.maybe_report(cfg.verbose, force=True)
-        for w in self.writers:
-            w.close()
         if cfg.print_table:
             self._dump_tables()
         if cfg.verbose or cfg.debug:
@@ -346,10 +406,14 @@ class Normalizer:
         self.report.final(paired=n_rev > 0)
         return self.report
 
-    def _stream_file(self, it, paired: bool, rr: int) -> int:
-        """Stream one file (pair) through dispatch and retire; returns the
-        round-robin cursor."""
+    def _stream_file(self, it, paired: bool, rr: int, fi: int, skip: int,
+                     ckpt, since_ckpt: int) -> tuple[int, int]:
+        """Stream one file (pair) through dispatch and retire, after skipping
+        its first `skip` records (a resume). Returns the round-robin cursor
+        and the batches queued since the last checkpoint."""
         cfg = self.cfg
+        # records of this file retired (or skipped), for the checkpoints
+        records_done = 0
         # the dispatch in flight, retired one dispatch later
         pending = None
         # per-shard staging queues for --dispatch-group
@@ -362,30 +426,41 @@ class Normalizer:
             table = self.tables[shard]
             pre = self._replay_snapshot(shard)
             with self.timer.stage("dispatch"):
-                keep, stats = self._dispatch_queue(shard, q, paired)
+                result = self._dispatch_queue(shard, q, paired)
             post = self.states[shard]
-            return (q, shard, keep, stats, table, pre, post.overflow,
-                    post.used)
+            return (q, shard, result, table, pre, post.overflow, post.used)
 
-        def flush_shard(shard: int):
+        def flush_shard(shard: int) -> int:
             """Dispatch shard's staged batches; retire the previous
-            dispatch."""
+            dispatch. Returns the records retired."""
             nonlocal pending
             q = groups.pop(shard, None)
             if not q:
-                return
+                return 0
             w = q[0][1].shape[1] - cfg.ksize + 1
             with self.timer.stage("grow_check"):
                 self._maybe_grow(shard, sum(x[1].shape[0] for x in q) * w)
             entry = dispatch(shard, q)
+            done = 0
             if pending is not None:
-                self._retire_checked(pending, paired)
+                done = self._retire_checked(pending, paired)
                 replayed, self._replayed_shards = self._replayed_shards, set()
                 if shard in replayed:
                     # the dispatch above consumed a state the replay has
                     # just replaced: redo it on the replayed table
                     entry = dispatch(shard, q)
             pending = entry
+            return done
+
+        def drain() -> int:
+            """Flush every staged queue and retire everything in flight."""
+            nonlocal pending
+            done = sum(flush_shard(s) for s in list(groups))
+            if pending is not None:
+                done += self._retire_checked(pending, paired)
+                self._replayed_shards.clear()
+                pending = None
+            return done
 
         def produce(it=it):
             """frame + pack, on the prefetch worker when cfg.prefetch > 0"""
@@ -404,26 +479,104 @@ class Normalizer:
                         batch, (bases, lengths, rec_valid) = next(src)
                 except StopIteration:
                     break
+                if skip:
+                    n = len(batch)
+                    take = min(skip, n)
+                    skip -= take
+                    records_done += take
+                    if take == n:
+                        continue
+                    # the resume point falls inside this batch: re-pack the
+                    # rest of it
+                    batch = _slice_batch(batch, take, n)
+                    bases, lengths, rec_valid = self._pack(batch, cfg.ksize)
+                # checkpoint only when nothing is staged or in flight: the
+                # states then describe exactly the records_done records
+                if ckpt and cfg.checkpoint_every \
+                        and since_ckpt >= cfg.checkpoint_every:
+                    records_done += drain()
+                    self._checkpoint(ckpt, fi, records_done, rr)
+                    since_ckpt = 0
+                if cfg.debug >= 3:
+                    self._debug_roundtrip(bases, lengths)
                 shard = rr % cfg.shards
                 rr += 1
                 q = groups.setdefault(shard, [])
                 if q and q[0][1].shape != bases.shape:
                     # the adaptive padding changed the batch shape: a group
                     # must be shape-homogeneous
-                    flush_shard(shard)
+                    records_done += flush_shard(shard)
                     q = groups.setdefault(shard, [])
                 q.append((batch, bases, lengths, rec_valid))
+                since_ckpt += 1
                 if len(q) >= cfg.dispatch_group:
-                    flush_shard(shard)
+                    records_done += flush_shard(shard)
         finally:
             if isinstance(pit, PrefetchIterator):
                 pit.close()
-        for s in list(groups):
-            flush_shard(s)
-        if pending is not None:
-            self._retire_checked(pending, paired)
-            self._replayed_shards.clear()
-        return rr
+        drain()
+        return rr, since_ckpt
+
+    # ------------------------------------------------------------------
+    def _resume(self, ckpt: CheckpointManager):
+        """Load the checkpoint, if one exists, into the engine: states,
+        table descriptors of their shapes, the occupancy mirrors, counters
+        and the debug > 2 shadows. Returns its ResumePoint, or None."""
+        loaded = ckpt.load(self.device)
+        if not loaded:
+            return None
+        self.states, resume = loaded
+        self._rebuild_tables_from_states()
+        self._reseed_used_bounds()
+        for c, saved in zip(self.counters, resume.counters):
+            c.processed = saved["processed"]
+            c.printed = saved["printed"]
+            c.skipped = saved["skipped"]
+            c.unique_kmers = saved["unique_kmers"]
+        print(f"Resuming from checkpoint: file {resume.file_index + 1}, "
+              f"{resume.records_done:,} records done")
+        if self._shadows is not None:
+            if resume.shadows is not None:
+                # upsert counts stay absolute across the resume
+                for sh, counts in zip(self._shadows, resume.shadows):
+                    sh.counts = counts
+            else:
+                print(
+                    "Warning: --debug>2 upsert lines after a resume "
+                    "count from the resume point (this checkpoint "
+                    "predates shadow snapshots)", file=sys.stderr,
+                )
+        return resume
+
+    def _rebuild_tables_from_states(self):
+        """Descriptors of the loaded states' shapes (a checkpoint may hold
+        a grown table)."""
+        for s, st in enumerate(self.states):
+            t = self.tables[s]
+            if tuple(st.keys.shape) != (t.rows, t.lanes):
+                self.tables[s] = type(t)(t.k, rows=int(st.keys.shape[0]),
+                                         lanes=int(st.keys.shape[1]),
+                                         device=self.device)
+
+    def _reseed_used_bounds(self):
+        """Prime each shard's occupancy mirror, and its live ``used``
+        counter, from the loaded table's real occupancy: growth then
+        triggers where it would have in the run that wrote the
+        checkpoint."""
+        for s, st in enumerate(self.states):
+            used = self.tables[s].used_count(st)
+            self.states[s] = st._replace(used=torch.tensor(
+                used, dtype=torch.int32, device=self.device))
+            self._used_bound[s] = float(used)
+
+    def _checkpoint(self, ckpt: CheckpointManager, file_index: int,
+                    records_done: int, rr: int):
+        for w in self.writers:
+            w.flush()
+        self._refresh_unique_counts()
+        paths = [p for w in self.writers for p in w.paths()]
+        ckpt.save(self.states, self.counters, file_index, records_done,
+                  paths, rr, shadows=self._shadows)
 
     # ------------------------------------------------------------------
     def _replay_snapshot(self, shard: int) -> Optional[TableState]:
@@ -434,17 +587,17 @@ class Normalizer:
             return None
         return _copy(self.states[shard])
 
-    def _retire_checked(self, entry, paired: bool):
+    def _retire_checked(self, entry, paired: bool) -> int:
         """Retire one dispatch, first checking its overflow counter against
         the host mirror: growth there means a row filled and the kernel
         dropped inserts, so the results are discarded and the group replayed
-        on a grown table (_grow_and_replay)."""
-        q, shard, keep, stats, table, pre, post_of, post_used = entry
+        on a grown table (_grow_and_replay). Returns the records retired."""
+        q, shard, result, table, pre, post_of, post_used = entry
         with self.timer.stage("device_wait"):
             # first sync on this dispatch
             of_post = int(post_of)
         if pre is not None and of_post > self._overflow_seen[shard]:
-            keep, stats = self._grow_and_replay(
+            result = self._grow_and_replay(
                 shard, table, pre, of_post,
                 lambda: self._dispatch_queue(shard, q, paired))
             # the dispatch in flight consumed the state just replaced
@@ -452,7 +605,7 @@ class Normalizer:
         else:
             self._overflow_seen[shard] = of_post
             self._used_bound[shard] = float(int(post_used))
-        self._retire_group([x[0] for x in q], shard, keep, stats)
+        return self._retire_group([x[0] for x in q], shard, *result)
 
     def _grow_and_replay(self, shard: int, table, pre_state: TableState,
                          of_post: int, dispatch):
@@ -473,6 +626,9 @@ class Normalizer:
             f"{table.capacity:,} slots and replaying the batch group",
             file=sys.stderr,
         )
+        # the overflowed state is discarded: free its planes before the
+        # grown ones exist (the peak of the last doubling, PERF.md)
+        self.states[shard] = None
         cur_t, cur_pre = table.grown(pre_state)
         while True:
             self.tables[shard] = cur_t
@@ -484,50 +640,197 @@ class Normalizer:
             of_new = int(self.states[shard].overflow)
             if of_new <= of_base or not cur_t.can_grow:
                 break
+            self.states[shard] = None
             cur_t, cur_pre = cur_t.grown(cur_pre)
         self._overflow_seen[shard] = of_new
         self._used_bound[shard] = float(int(self.states[shard].used))
         return result
 
     def _dispatch_queue(self, shard: int, q: list, paired: bool):
+        """(keep, StepStats, ReadTallies) of a staged group, on the device;
+        a group of G > 1 batches gives them a leading G axis."""
         step = self._get_step(shard, paired)
         if len(q) == 1:
             _, bases, lengths, rv = q[0]
-            self.states[shard], keep, stats, _ = step.step(
+            self.states[shard], *result = step.step(
                 self.states[shard], bases, lengths, rv)
         else:
-            self.states[shard], keep, stats, _ = step.step_many(
+            self.states[shard], *result = step.step_many(
                 self.states[shard], np.stack([x[1] for x in q]),
                 np.stack([x[2] for x in q]), np.stack([x[3] for x in q]))
-        return keep, stats
+        return result
 
-    def _retire_group(self, batches, shard, keep_dev, stats_dev):
+    def _retire_group(self, batches, shard, keep_dev, stats_dev,
+                      tallies_dev) -> int:
         """Retire one dispatch: a single batch, or a step_many group whose
-        outputs carry a leading G axis."""
+        outputs carry a leading G axis. The per-read tallies reach the host
+        only for the --debug > 1 lines."""
         if len(batches) == 1:
-            self._retire(batches[0], shard, keep_dev, stats_dev)
-            return
+            return self._retire(batches[0], shard, keep_dev, stats_dev,
+                                tallies_dev)
         with self.timer.stage("device_wait"):
             keep = keep_dev.cpu().numpy()
             stats = StepStats(*(x.cpu().numpy() for x in stats_dev))
+            if self.cfg.debug > 1:
+                tallies_dev = ReadTallies(*(x.cpu().numpy()
+                                            for x in tallies_dev))
+        done = 0
         for g, b in enumerate(batches):
-            self._retire(b, shard, keep[g],
-                         StepStats(*(x[g] for x in stats)))
+            done += self._retire(b, shard, keep[g],
+                                 StepStats(*(x[g] for x in stats)),
+                                 ReadTallies(*(x[g] for x in tallies_dev)))
+        return done
 
-    def _retire(self, batch, shard, keep_dev, stats_dev):
+    def _retire(self, batch, shard, keep_dev, stats_dev, tallies_dev) -> int:
         with self.timer.stage("device_wait"):
             keep = (keep_dev.cpu().numpy() if torch.is_tensor(keep_dev)
                     else keep_dev)
         with self.timer.stage("write"):
             self.writers[shard].write_kept(batch, keep)
         c = self.counters[shard]
+        prev_processed = c.processed
         c.processed += int(stats_dev.processed)
         c.printed += int(stats_dev.printed)
         c.skipped += int(stats_dev.skipped)
+        if self.cfg.debug > 1:
+            self._debug_records(batch, shard, keep, tallies_dev,
+                                prev_processed)
         if c.due():
             # live occupancy for the 60 s verbose line
             c.unique_kmers = self.tables[shard].used_count(self.states[shard])
         c.maybe_report(self.cfg.verbose)
+        return len(batch)
+
+    # ------------------------------------------------------------------
+    # the debug tiers (reference nk.c:944-1051, :1677-1696)
+
+    def _debug_records(self, batch, shard, keep, tallies, base_count):
+        """Per-record PRINTED/SKIPPED lines (debug > 1), each after the
+        record's per-upsert lines (debug > 2) and before its raw dump
+        (debug > 3)."""
+        high, total = (np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                       for x in tallies)
+        paired = batch.rev is not None
+        d = self.cfg.depth_per_shard
+        seq_no = base_count
+        for i in range(len(batch)):
+            if paired:
+                hf, tf = int(high[2 * i]), int(total[2 * i])
+                hr, tr = int(high[2 * i + 1]), int(total[2 * i + 1])
+                if tf == 0 and tr == 0 and not keep[i]:
+                    continue  # invalid record: the reference skips silently
+                if self._shadows is not None:
+                    # fwd mate then rev, as the reference's store_kmer calls
+                    sh = self._shadows[shard]
+                    sh.process_seq(
+                        self._record_seq(batch.fwd_file, batch.fwd, i),
+                        sys.stdout)
+                    sh.process_seq(
+                        self._record_seq(batch.rev_file, batch.rev, i),
+                        sys.stdout)
+                seq_no += 1
+                verdict = "PRINTED" if keep[i] else "SKIPPED"
+                rf = hf / tf if tf else 0.0
+                rv = hr / tr if tr else 0.0
+                print(
+                    f"Thread {shard} - Sequence pair {seq_no:,} {verdict}: "
+                    f"High ({d}) count kmers: F:{hf};R:{hr}, "
+                    f"Total kmers: F:{tf};R:{tr} "
+                    f"High count ratio: F:{rf:.2f};R:{rv:.2f}"
+                )
+            else:
+                h, t = int(high[i]), int(total[i])
+                if t == 0 and not keep[i]:
+                    continue
+                if self._shadows is not None:
+                    self._shadows[shard].process_seq(
+                        self._record_seq(batch.fwd_file, batch.fwd, i),
+                        sys.stdout)
+                seq_no += 1
+                verdict = "PRINTED" if keep[i] else "SKIPPED"
+                r = h / t if t else 0.0
+                print(
+                    f"Thread {shard} - Sequence {seq_no:,} {verdict}: "
+                    f"High ({d}) count kmers: F:{h}, Total kmers: F:{t} "
+                    f"High count ratio: F:{r:.2f}"
+                )
+            if self.cfg.debug > 3:
+                self._debug_dump_seq(batch, i)
+
+    @staticmethod
+    def _debug_dump_seq(batch, i: int):
+        """The raw record dump of debug > 3 (reference nk.c:1694-1695)."""
+
+        def seq(file, cols):
+            h0 = int(cols.hdr_start[i])
+            s0, sl = int(cols.seq_start[i]), int(cols.seq_len[i])
+            hdr = bytes(file.data[h0:int(cols.hdr_len[i]) + h0]).decode(
+                "ascii", "replace")
+            sq = bytes(file.data[s0:s0 + sl]).decode("ascii", "replace")
+            return hdr, sq
+
+        fh, fs = seq(batch.fwd_file, batch.fwd)
+        if batch.rev is not None:
+            rh, rs = seq(batch.rev_file, batch.rev)
+            print(f"FWD seq: {fh}\n{fs}\nREV seq: {rh}\n{rs}")
+        else:
+            print(f"FWD seq: {fh}\n{fs}")
+
+    def _debug_roundtrip(self, bases: np.ndarray, lengths: np.ndarray):
+        """The debug >= 3 self-check of one packed batch (reference
+        nk.c:950-960, 976-991, which cross-checks decode(encode(kmer)) and
+        exits on a mismatch): every valid window's code from the codec
+        (ops/codec.py, on the host) is decoded to a string and re-encoded
+        independently; then the run's encode kernel, on the engine's device,
+        is held against the codec plus mix32_np / feistel_words_np."""
+        cfg = self.cfg
+        k = cfg.ksize
+        hi, lo = codec.encode_windows_canonical(torch.from_numpy(bases), k,
+                                                cfg.canonical)
+        valid = codec.window_validity(torch.from_numpy(lengths), hi, lo,
+                                      k).numpy()
+        hi = hi.numpy().astype(np.uint32)
+        lo = lo.numpy().astype(np.uint32)
+        vhi, vlo = hi[valid], lo[valid]
+        if vhi.size:
+            kmers = decode_codes(vhi, vlo, k)
+            arr = LUT[np.frombuffer("".join(kmers).encode(), np.uint8)
+                      ].reshape(len(kmers), k).astype(np.uint64)
+            code2 = np.zeros(len(kmers), np.uint64)
+            for j in range(k):
+                code2 = (code2 << np.uint64(2)) | arr[:, j]
+            bad = ((code2 & np.uint64(0xFFFFFFFF)).astype(np.uint32) != vlo) \
+                | ((code2 >> np.uint64(32)).astype(np.uint32) != vhi)
+            if bad.any():
+                i = int(np.argmax(bad))
+                raise SystemExit(
+                    f"FATAL: kmers do not match hash: {kmers[i]} vs "
+                    f"{(int(vhi[i]) << 32) | int(vlo[i])}"
+                )
+        if cfg.stride != 1:
+            return
+        b = torch.from_numpy(bases).to(self.device)
+        ln = torch.from_numpy(lengths).to(self.device)
+        if self.tables[0].wide:
+            w1, w2 = encode_keys_wide(b, ln, k, cfg.canonical)
+            key = w1.cpu().numpy().view(np.uint32).astype(np.uint64) \
+                << np.uint64(32)
+            key |= w2.cpu().numpy().view(np.uint32)
+            code = (hi.astype(np.uint64) << np.uint64(32)) | lo
+            e1, e2 = feistel_words_np(code[valid], 2 * k)
+            expect = np.full(key.shape, 0xFFFFFFFFFFFFFFFF, np.uint64)
+            expect[valid] = (e1.astype(np.uint64) << np.uint64(32)) | e2
+        else:
+            key = encode_keys(b, ln, k, cfg.canonical).cpu().numpy() \
+                .view(np.uint32)
+            expect = np.full(key.shape, 0xFFFFFFFF, np.uint32)
+            expect[valid] = mix32_np(lo[valid], 2 * k)
+        if (key != expect).any():
+            r, w = np.argwhere(key != expect)[0]
+            raise SystemExit(
+                f"FATAL: fused encode kernel disagrees with codec at "
+                f"read {r} window {w}: {key[r, w]:#x} vs {expect[r, w]:#x}"
+            )
 
     def _refresh_unique_counts(self):
         for s in range(self.cfg.shards):

@@ -9,10 +9,24 @@ reference's setlocale+%' (:2225).
 from __future__ import annotations
 
 import dataclasses
+import re
 import sys
 import time
 
 REPORTING_INTERVAL = 60.0
+
+#: the stdout lines that carry wall-clock readings: the verbose rate line,
+#: the final report's runtime and rate, and the stage timer's report
+#: (utils/profiling.py); two runs of one config print the same lines else
+CLOCK_LINE = re.compile(r"Thread \d+ - Processing rate: |Total runtime: "
+                        r"|Overall processing rate: "
+                        r"|--- Host stage timing ---$"
+                        r"|\w+: [\d.]+s \([\d.]+%\), \d+ calls, ")
+
+
+def without_clock_lines(text: str) -> list[str]:
+    """The lines of `text` (a run's stdout) but its CLOCK_LINE lines."""
+    return [ln for ln in text.splitlines() if not CLOCK_LINE.match(ln)]
 
 
 def _p(msg: str):

@@ -1,7 +1,7 @@
 """The per-batch device step on the bucket path: encode -> count -> classify.
 
 Port of nomalise_kmers_multi_large_tpu/engine/step.py::BatchStep for the
-bucket tables in exact mode. k <= 15:
+bucket tables, in exact and relaxed mode. k <= 15:
 
   bases[R, L] --K1 encode--> keys[R, W] --sort (key, read id)--> K3 scan
       --K4 upsert--> high[R], with total[R] = valid windows --> keep[B]
@@ -9,6 +9,11 @@ bucket tables in exact mode. k <= 15:
 k = 16..31 (BucketTableWide): K2 encode gives the sort words (w1, w2), the
 sort runs on (w1, w2, read id), then K3w and K5; a window is valid iff
 ``w2 != -1``. Stride samples both words after the encode kernel.
+
+``mode="relaxed"`` changes only the sort: the read id stops being a sort
+key, so ranks among a batch's copies of one code reach reads in arbitrary
+order. Table counts stay exact, and so does each code's multiset of
+observed values.
 
 PyTorch runs eagerly, so there is nothing to compile; ``step_many`` is a
 Python loop that carries the state through G batches, with the same results
@@ -52,15 +57,14 @@ def _on(x, device: torch.device) -> torch.Tensor:
 
 
 class BatchStep:
-    """Batch functions of one table shard (bucket tables, exact mode)."""
+    """Batch functions of one table shard (bucket tables)."""
 
     def __init__(self, table: BucketTable, *, k: int, depth_per_shard: int,
                  coverage: float, canonical: bool, paired: bool,
                  mode: str = "exact", pair_rule: str = "and",
                  stride: int = 1):
-        if mode != "exact":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet; only exact mode runs")
+        if mode not in ("exact", "relaxed"):
+            raise ValueError(f"mode must be exact or relaxed, not {mode!r}")
         self.table = table
         self.device = table.device
         self.k = k
@@ -69,6 +73,7 @@ class BatchStep:
         self.canonical = canonical
         self.paired = paired
         self.pair_rule = pair_rule
+        self.relaxed = mode == "relaxed"
         #: window stride: 1 = every window; s > 1 samples every s-th window
         #: of the encoded keys (the same subset as the reference package)
         self.stride = stride
@@ -85,10 +90,12 @@ class BatchStep:
             words = tuple(w[:, ::self.stride].contiguous() for w in words)
         if self.table.wide:
             state, out = self.table.process_batch_keys(
-                state, *words, depth=self.depth, seed=seed)
+                state, *words, depth=self.depth, seed=seed,
+                relaxed=self.relaxed)
         else:
             state, out = self.table.process_batch_mixed(
-                state, *words, depth=self.depth, seed=seed)
+                state, *words, depth=self.depth, seed=seed,
+                relaxed=self.relaxed)
         # the last word is the validity word: the key, or w2 on the wide path
         total = (words[-1] != SENTINEL).sum(1, dtype=torch.int32)
         return state, out, total

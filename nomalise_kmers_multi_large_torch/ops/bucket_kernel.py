@@ -10,7 +10,8 @@ number of this batch's earlier inserts into the row, so the planes equal
 the JAX tables lane for lane.
 
 ``bucket_batch`` sorts the stream on one packed int64 key
-``(key << 14) | read id`` (exact mode; read ids < 16384), runs the rank /
+``(key << 14) | read id`` (exact mode; read ids < 16384; relaxed mode sorts
+the 32-bit key alone, see ``sort_stream``), runs the rank /
 candidate scan (K3) and then ``bucket_upsert`` (K4), which updates ``fp`` and
 ``counts`` IN PLACE (the JAX kernel aliases them too; in place saves a
 second copy of a table of up to 1 GiB). ``bucket_upsert`` launches the CUDA
@@ -22,8 +23,8 @@ The wide table (k = 16..31) keys a code by its Feistel sort words (w1, w2)
 ``fpA = (w1 & (2^row_shift - 1)) + 1`` (0 = empty) and ``fpB = w2`` (no fpB
 at k = 16). ``bucket_batch_wide`` sorts on one int64 key ``(w1 << 30) | w2``
 (a real w2 is < 2^30; the sentinel pair maps to INT64_MAX) with a stable
-sort, so the read id is the sorted position's stream index // windows per
-read; then the wide scan (K3w) and ``bucket_upsert_wide`` (K5,
+sort (unstable in relaxed mode), so the read id is the sorted position's
+stream index // windows per read; then the wide scan (K3w) and ``bucket_upsert_wide`` (K5,
 csrc/bucket_wide.cu; ``bucket_upsert_wide_plain`` for CPU tensors). Window
 validity is ``w2 != 0xFFFFFFFF``: a sentinel's w1 maps to the real row
 ``rows - 1``.
@@ -53,6 +54,7 @@ _ARGTYPES_WIDE = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                      ctypes.c_int, ctypes.c_void_p])
 _W2_BITS = 30                 # a real w2 is < 2^30
 _SORT_SENTINEL = (1 << 63) - 1
+_INT32_MIN = -(1 << 31)       # key ^ INT32_MIN orders int32 keys as uint32
 
 
 class BucketBatchOut(NamedTuple):
@@ -184,8 +186,21 @@ def bucket_upsert(fp, counts, skey, p2, p3, *, fp_bits: int, depth: int,
     return high, stats
 
 
-def sort_stream(key_flat: torch.Tensor, rid_flat: torch.Tensor):
-    """Exact-mode sort on (key as uint32, read id): one packed int64 key."""
+def sort_stream(key_flat: torch.Tensor, rid_flat: torch.Tensor,
+                relaxed: bool = False):
+    """Sort the stream on (key as uint32, read id): one packed int64 key.
+
+    Relaxed mode (``--mode relaxed``) sorts the 32-bit key alone, unstably,
+    with the stream index as the payload: equal keys then reach the scan in
+    any order, so which read sees which occurrence rank among a batch's
+    copies of one code is arbitrary (the JAX package's ``num_keys=1``
+    sort). Counts and every code's multiset of observed values are as in
+    exact mode, and half the key width halves a radix sort's passes.
+    Returns (skey, srid) int32 [N]."""
+    if relaxed:
+        flipped, order = torch.sort(key_flat.to(torch.int32) ^ _INT32_MIN,
+                                    stable=False)
+        return flipped ^ _INT32_MIN, rid_flat[order].to(torch.int32)
     packed = ((key_flat.to(torch.int64) & 0xFFFFFFFF) << _RID_BITS) | rid_flat
     packed = torch.sort(packed).values
     return ((packed >> _RID_BITS).to(torch.int32),
@@ -193,8 +208,8 @@ def sort_stream(key_flat: torch.Tensor, rid_flat: torch.Tensor):
 
 
 def bucket_batch(fp, counts, key_flat, rid_flat, *, fp_bits: int,
-                 depth: int, n_reads: int, seed: bool = False
-                 ) -> BucketBatchOut:
+                 depth: int, n_reads: int, seed: bool = False,
+                 relaxed: bool = False) -> BucketBatchOut:
     """Run one batch through the bucket table: sort, scan, upsert.
 
     Args:
@@ -203,8 +218,9 @@ def bucket_batch(fp, counts, key_flat, rid_flat, *, fp_bits: int,
       rid_flat: int64 [N] read id of each element, in [0, n_reads).
       fp_bits: fingerprint bits (rows * 2^fp_bits = 4^k); depth: high
         threshold (<= 65535).
+      relaxed: sort on the key alone (sort_stream).
     """
-    skey, srid = sort_stream(key_flat, rid_flat)
+    skey, srid = sort_stream(key_flat, rid_flat, relaxed)
     p2, p3 = rank_cand_scan(skey, srid, fp_bits=fp_bits, n_reads=n_reads)
     high, stats = bucket_upsert(fp, counts, skey, p2, p3, fp_bits=fp_bits,
                                 depth=depth, seed=seed, n_reads=n_reads)
@@ -249,7 +265,7 @@ def bucket_upsert_wide(fpA, fpB, counts, sk1, sk2, p2, p3, *, row_shift: int,
         same, or None at k = 16.
       sk1, sk2: int32 [N] sorted sort words (sentinel pair (-1, -1) last);
         p2, p3: int32 [N] from the wide rank_cand_scan.
-      row_shift: rows = 2^(32 - row_shift), 11..23.
+      row_shift: rows = 2^(32 - row_shift), 8..23.
       depth, seed, n_reads: as bucket_upsert.
 
     Returns (high_per_read int32 [n_reads], stats int32 [2] = (dropped
@@ -262,11 +278,11 @@ def bucket_upsert_wide(fpA, fpB, counts, sk1, sk2, p2, p3, *, row_shift: int,
             and sk1.dim() == 1):
         raise ValueError("bucket_upsert_wide: sk1, sk2, p2, p3 must be [N]")
     rows, lanes = fpA.shape
-    if not 11 <= row_shift <= 23 or rows << row_shift != 1 << 32 or \
+    if not 8 <= row_shift <= 23 or rows << row_shift != 1 << 32 or \
             lanes % 32 or lanes > 128:
         raise ValueError(f"bucket_upsert_wide: planes {tuple(fpA.shape)} "
                          f"with row_shift {row_shift}: need rows = "
-                         "2^(32 - row_shift) in 2^9..2^21 and lanes a "
+                         "2^(32 - row_shift) in 2^9..2^24 and lanes a "
                          "multiple of 32 up to 128")
     if not 1 <= n_reads <= MAX_READS or depth > 65535:
         raise ValueError(f"bucket_upsert_wide: n_reads={n_reads} or "
@@ -292,18 +308,20 @@ def bucket_upsert_wide(fpA, fpB, counts, sk1, sk2, p2, p3, *, row_shift: int,
 
 
 def sort_stream_wide(w1_flat: torch.Tensor, w2_flat: torch.Tensor,
-                     windows_per_read: int):
-    """Exact-mode sort of a read-major stream on (w1, w2, read id).
+                     windows_per_read: int, relaxed: bool = False):
+    """Sort a read-major stream on (w1, w2, read id).
 
     One int64 key ``(w1 << 30) | w2`` (< 2^62), the sentinel pair mapped to
     INT64_MAX, sorted stably: equal codes keep stream order, so the sorted
-    position's stream index // windows_per_read is its read id. Returns
-    (sk1, sk2, srid) int32 [N], the sentinel pair back at (-1, -1)."""
+    position's stream index // windows_per_read is its read id. Relaxed
+    mode sorts unstably (the JAX package's ``num_keys=2``): equal codes
+    reach the scan in any order. Returns (sk1, sk2, srid) int32 [N], the
+    sentinel pair back at (-1, -1)."""
     w1 = w1_flat.to(torch.int64) & 0xFFFFFFFF
     w2 = w2_flat.to(torch.int64) & 0xFFFFFFFF
     packed = torch.where(w2 == 0xFFFFFFFF, _SORT_SENTINEL,
                          (w1 << _W2_BITS) | w2)
-    packed, order = torch.sort(packed, stable=True)
+    packed, order = torch.sort(packed, stable=not relaxed)
     sent = packed == _SORT_SENTINEL
     sk1 = as_int32(torch.where(sent, -1, packed >> _W2_BITS))
     sk2 = as_int32(torch.where(sent, -1, packed & ((1 << _W2_BITS) - 1)))
@@ -312,7 +330,8 @@ def sort_stream_wide(w1_flat: torch.Tensor, w2_flat: torch.Tensor,
 
 def bucket_batch_wide(fpA, fpB, counts, w1_flat, w2_flat, *,
                       windows_per_read: int, row_shift: int, depth: int,
-                      seed: bool = False) -> BucketBatchWideOut:
+                      seed: bool = False, relaxed: bool = False
+                      ) -> BucketBatchWideOut:
     """Run one read-major batch through the wide bucket table: sort, wide
     scan (K3w), wide upsert (K5). The planes are updated in place.
 
@@ -321,9 +340,11 @@ def bucket_batch_wide(fpA, fpB, counts, w1_flat, w2_flat, *,
       w1_flat, w2_flat: int32 [N] sort words in stream order, N a multiple
         of windows_per_read; an invalid window holds (-1, -1).
       row_shift, depth, seed: as bucket_upsert_wide.
+      relaxed: sort unstably (sort_stream_wide).
     """
     n_reads = w1_flat.numel() // windows_per_read
-    sk1, sk2, srid = sort_stream_wide(w1_flat, w2_flat, windows_per_read)
+    sk1, sk2, srid = sort_stream_wide(w1_flat, w2_flat, windows_per_read,
+                                      relaxed)
     p2, p3 = rank_cand_scan(sk1, srid, fp_bits=0, n_reads=n_reads,
                             skey2=sk2, row_shift=row_shift)
     high, stats = bucket_upsert_wide(fpA, fpB, counts, sk1, sk2, p2, p3,

@@ -69,10 +69,11 @@ def rank_cand_scan(skey: torch.Tensor, srid: torch.Tensor, *, fp_bits: int,
         (unused on the wide path).
       n_reads: reads in the batch (read ids clamp to n_reads - 1).
       skey2: int32 [N] second sort word (wide path, k > 15), or None.
-      row_shift: the wide bucket row is ``skey >> row_shift``, 11..23.
+      row_shift: the wide bucket row is ``skey >> row_shift``, 8..23
+        (2^24..2^9 rows).
     """
     wide = skey2 is not None
-    shift, lo, hi = (row_shift, 11, 23) if wide else (fp_bits, 1, 16)
+    shift, lo, hi = (row_shift, 8, 23) if wide else (fp_bits, 1, 16)
     if skey.dim() != 1 or srid.shape != skey.shape or \
             (wide and skey2.shape != skey.shape):
         raise ValueError("rank_cand_scan: skey, skey2 and srid must be [N]")

@@ -48,29 +48,46 @@ def default_rows(k: int, memory_bytes: Optional[int] = None) -> int:
     return min(max(rows, floor), ceiling)
 
 
+#: rows of one _split_rows block: bounds its transients (an int64 lane
+#: index per slot) to 512 MiB whatever the table's size
+_SPLIT_BLOCK_ROWS = 1 << 20
+
+
 def _split_rows(keys: torch.Tensor, counts: torch.Tensor, fb: int,
                 keys2: Optional[torch.Tensor] = None):
     """Row-doubling remap: the entry at (r, fp) moves to row 2r + top_bit(fp)
     with that bit stripped from its fingerprint; each old row splits into two
     left-packed new rows, entries in their old lane order. `keys2` (the wide
     table's second plane) follows the same lane permutation unchanged.
-    Returns (keys, counts, keys2) of 2 * rows rows."""
+    Returns (keys, counts, keys2) of 2 * rows rows.
+
+    The new planes are allocated once, as [rows, 2, lanes] (row r's halves
+    side by side), and filled block by block of old rows, so the remap holds
+    little beyond its inputs and outputs even at 2^24 rows."""
     rows, lanes = keys.shape
-    occ = keys != 0
-    top = ((keys - 1) >> (fb - 1)) & 1
-    stripped = torch.where(occ, ((keys - 1) & ((1 << (fb - 1)) - 1)) + 1, 0)
-    planes = [stripped, counts] + ([keys2] if keys2 is not None else [])
-    halves = [[] for _ in planes]
-    for bit in (0, 1):
-        take = occ & (top == bit)
-        # lane in the new row; entries that stay out go to a spill column
-        dest = torch.where(take, torch.cumsum(take, 1) - 1, lanes)
-        for plane, half in zip(planes, halves):
-            out = torch.zeros((rows, lanes + 1), dtype=plane.dtype,
-                              device=plane.device)
-            out.scatter_(1, dest, torch.where(take, plane, 0))
-            half.append(out[:, :lanes])
-    out = [torch.stack(h, 1).reshape(2 * rows, lanes) for h in halves]
+    planes = [keys, counts] + ([keys2] if keys2 is not None else [])
+    outs = [torch.zeros((rows, 2, lanes), dtype=p.dtype, device=p.device)
+            for p in planes]
+    low = (1 << (fb - 1)) - 1
+    for r0 in range(0, rows, _SPLIT_BLOCK_ROWS):
+        blk = slice(r0, min(rows, r0 + _SPLIT_BLOCK_ROWS))
+        k = keys[blk]
+        occ = k != 0
+        top = (((k - 1) >> (fb - 1)) & 1).to(torch.bool)
+        src = [torch.where(occ, ((k - 1) & low) + 1, 0)] + \
+            [p[blk] for p in planes[1:]]
+        for bit in (False, True):
+            take = occ & (top == bit)
+            # lane in the new row; an entry that stays out writes 0 into the
+            # last lane, which a taken entry reaches only when every lane
+            # of the row is taken (and then none stays out)
+            dest = torch.cumsum(take, 1)
+            dest -= 1
+            dest.masked_fill_(~take, lanes - 1)
+            for plane, out in zip(src, outs):
+                out[blk, int(bit)].scatter_(1, dest,
+                                            torch.where(take, plane, 0))
+    out = [o.view(2 * rows, lanes) for o in outs]
     return out[0], out[1], out[2] if keys2 is not None else None
 
 
@@ -116,16 +133,18 @@ class BucketTable:
     # ------------------------------------------------------------------
     def process_batch_mixed(self, state: TableState, key: torch.Tensor, *,
                             depth: int, seed: bool = False,
+                            relaxed: bool = False,
                             ) -> tuple[TableState, BucketBatchOut]:
         """One whole-batch upsert + classify. `key` is int32 [R, W] in stream
         order (encode_keys output; -1 marks an invalid window). The planes
-        of `state` are updated in place; the returned state shares them."""
+        of `state` are updated in place; the returned state shares them.
+        `relaxed` sorts on the key alone (bucket_batch)."""
         self._check(state)
         R, W = key.shape
         rid = torch.arange(R * W, device=key.device) // W
         out = bucket_batch(state.keys, state.counts, key.reshape(R * W), rid,
                            fp_bits=self.fp_bits, depth=depth, n_reads=R,
-                           seed=seed)
+                           seed=seed, relaxed=relaxed)
         new_state = TableState(
             counts=out.counts, keys=out.fp,
             used=state.used + out.inserted,
@@ -202,8 +221,9 @@ class BucketTableWide(BucketTable):
     (absent at k = 16, where w2 is 0)."""
 
     wide = True
-    #: growth ceiling: 2^21 rows = 134M slots, 1.5 GiB at 64 lanes, k > 16
-    MAX_ROWS = 1 << 21
+    #: growth ceiling: 2^24 rows = 2^30 slots, 12 GiB of planes at 64 lanes
+    #: and k > 16 (row_shift 8; a slot index still fits int32)
+    MAX_ROWS = 1 << 24
 
     def __init__(self, k: int, rows: Optional[int] = None,
                  lanes: int = DEFAULT_LANES, device="cpu"):
@@ -234,18 +254,19 @@ class BucketTableWide(BucketTable):
 
     def process_batch_keys(self, state: TableState, w1: torch.Tensor,
                            w2: torch.Tensor, *, depth: int,
-                           seed: bool = False
+                           seed: bool = False, relaxed: bool = False
                            ) -> tuple[TableState, BucketBatchOut]:
         """One whole-batch upsert + classify. `w1`, `w2` are int32 [R, W]
         Feistel sort words in stream order (encode_keys_wide output; the
         pair (-1, -1) marks an invalid window). The planes of `state` are
-        updated in place; the returned state shares them."""
+        updated in place; the returned state shares them. `relaxed` sorts
+        unstably (bucket_batch_wide)."""
         self._check(state)
         R, W = w1.shape
         out = bucket_batch_wide(state.keys, state.keys2, state.counts,
                                 w1.reshape(R * W), w2.reshape(R * W),
                                 windows_per_read=W, row_shift=self.row_shift,
-                                depth=depth, seed=seed)
+                                depth=depth, seed=seed, relaxed=relaxed)
         new_state = TableState(
             counts=out.counts, keys=out.fpA,
             used=state.used + out.inserted,

@@ -7,13 +7,16 @@ CUDA kernel has no CPU mode). On a machine with a card:
 
 Every output is an integer, so every comparison is exact (tolerance 0).
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
-    bucket_upsert, bucket_upsert_plain, bucket_upsert_wide,
-    bucket_upsert_wide_plain, sort_stream, sort_stream_wide,
+    bucket_batch, bucket_batch_wide, bucket_upsert, bucket_upsert_plain,
+    bucket_upsert_wide, bucket_upsert_wide_plain, sort_stream,
+    sort_stream_wide,
 )
 from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
     encode_keys, encode_keys_plain, encode_keys_wide, encode_keys_wide_plain,
@@ -23,7 +26,7 @@ from nomalise_kmers_multi_large_torch.ops.segscan import (
     _TILE, rank_cand_scan, rank_cand_scan_plain,
 )
 from nomalise_kmers_multi_large_torch.table.bucket import (
-    BucketTable, BucketTableWide,
+    BucketTable, BucketTableWide, state_to_numpy,
 )
 
 pytestmark = pytest.mark.cuda
@@ -410,7 +413,7 @@ def _wide_stream(dev, k, n=300_000, seed=0):
 def test_scan_wide_kernel_matches_plain(dev, k):
     sk1, sk2, srid = _wide_stream(dev, k)
     n_reads = int(srid.max()) + 1
-    for row_shift in (11, 17, 23):
+    for row_shift in (8, 10, 11, 17, 23):
         kw = dict(fp_bits=0, n_reads=n_reads, skey2=sk2, row_shift=row_shift)
         got = rank_cand_scan(sk1, srid, **kw)
         want = rank_cand_scan_plain(sk1, srid, **kw)
@@ -510,3 +513,118 @@ def test_bucket_wide_kernel_last_row_beside_sentinels(dev, k):
                                seed=False, depth=2)
     assert int(stats[1]) == int((state.keys[-1] != 0).sum()) > 0
     assert int(state.counts.sum()) == n_real
+
+
+@pytest.mark.parametrize("row_shift", [10, 8])
+def test_bucket_wide_kernel_on_2_22_and_2_24_rows(dev, row_shift):
+    """K5 on the tables past the old 2^21-row ceiling: 2^22 rows (row_shift
+    10) and 2^24 rows (row_shift 8, 12 GiB of planes, and as much again
+    for the plain version's copy), seeded by two batches, then a third in
+    count mode."""
+    table = BucketTableWide(25, rows=1 << (32 - row_shift), device=dev)
+    assert table.row_shift == row_shift
+    state = table.init()
+    stream = _wide_batches(dev, table, np.random.default_rng(row_shift))
+    for s in stream[:2]:
+        _check_wide_upsert(table, state, s, seed=True)
+    stats = _check_wide_upsert(table, state, stream[2], seed=False)
+    assert int(stats[1]) > 0 and int(stats[0]) == 0
+    del state
+    torch.cuda.empty_cache()
+
+
+def test_wide_table_grows_past_2_21_rows_on_the_card(dev):
+    """A 2^21-row table filled by the kernels grows to 2^22 rows on the
+    card, equal lane for lane to the same growth on the CPU, and the grown
+    table takes a batch as the plain version does."""
+    table = BucketTableWide(25, rows=1 << 21, device=dev)
+    assert table.can_grow
+    state = table.init()
+    rng = np.random.default_rng(21)
+    for s in _wide_batches(dev, table, rng, n_batches=2):
+        _check_wide_upsert(table, state, s, seed=True)
+    cpu_table = BucketTableWide(25, rows=1 << 21)
+    cpu_state = type(state)(*(None if x is None else x.cpu() for x in state))
+    grown_t, grown = table.grown(state)
+    cpu_t, cpu_grown = cpu_table.grown(cpu_state)
+    del state, cpu_state
+    assert grown_t.rows == cpu_t.rows == 1 << 22
+    got, want = state_to_numpy(grown), state_to_numpy(cpu_grown)
+    for name in ("keys", "keys2", "counts"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    del cpu_grown
+    stream = _wide_batches(dev, grown_t, rng, n_batches=1)[0]
+    stats = _check_wide_upsert(grown_t, grown, stream, seed=False)
+    assert int(stats[0]) == 0 and int(stats[1]) > 0
+
+
+@pytest.mark.parametrize("k", [15, 25])
+def test_relaxed_sort_gives_exact_planes(dev, k):
+    """Three batches through the whole batch path (sort, scan, upsert) in
+    relaxed and in exact mode: the planes are equal lane for lane, and so
+    are each batch's sum of high windows and the stats."""
+    rng = np.random.default_rng(k)
+    wide = k > 15
+    tables = [(BucketTableWide if wide else BucketTable)(
+        k, rows=1 << 14 if wide else 1 << 16, device=dev) for _ in range(2)]
+    states = [t.init() for t in tables]
+    for i in range(3):
+        bases, lengths = _reads(rng, 4096, 150)
+        b = torch.from_numpy(bases).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        highs = []
+        for t, st, relaxed in zip(tables, states, (False, True)):
+            if wide:
+                w1, w2 = encode_keys_wide(b, ln, k, False)
+                out = bucket_batch_wide(
+                    st.keys, st.keys2, st.counts, w1.reshape(-1),
+                    w2.reshape(-1), windows_per_read=w1.shape[1],
+                    row_shift=t.row_shift, depth=3, seed=i == 0,
+                    relaxed=relaxed)
+            else:
+                key = encode_keys(b, ln, k, False)
+                rid = torch.arange(key.numel(), device=dev) // key.shape[1]
+                out = bucket_batch(st.keys, st.counts, key.reshape(-1), rid,
+                                   fp_bits=t.fp_bits, depth=3,
+                                   n_reads=key.shape[0], seed=i == 0,
+                                   relaxed=relaxed)
+            highs.append((int(out.high_per_read.sum()), int(out.overflow),
+                          int(out.inserted)))
+        assert highs[0] == highs[1]
+        for a, c in zip(*states):
+            assert (a is None and c is None) or torch.equal(a, c)
+    assert highs[0][0] > 0
+
+
+@pytest.mark.parametrize("k", [15, 25])
+def test_debug3_roundtrip_on_the_card(dev, tmp_path, k):
+    """--debug 3 on cuda: the round-trip holds the CUDA encode kernel
+    against the codec on every batch and passes; stdout equals the CPU
+    run's but for the wall-clock lines."""
+    import contextlib
+    import io
+
+    from nomalise_kmers_multi_large_torch.config import Config
+    from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
+    from nomalise_kmers_multi_large_torch.engine.report import (
+        without_clock_lines,
+    )
+
+    data = pathlib.Path(__file__).resolve().parent / "data"
+    files = []
+    for name in ("a1", "b1"):  # the first 200 pairs
+        text = (data / f"{name}.fasta").read_text().splitlines(True)
+        files.append(tmp_path / f"{name}.fa")
+        files[-1].write_text("".join(text[:400]))
+    lines = {}
+    for device in ("cuda", "cpu"):
+        cfg = Config(forward_files=(str(files[0]),),
+                     reverse_files=(str(files[1]),), informat="fa",
+                     outformat="fa", ksize=k, depth=2, debug=3,
+                     batch_reads=64, out_dir=str(tmp_path / device))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            Normalizer(cfg, device=device).run()
+        lines[device] = without_clock_lines(buf.getvalue())
+    assert lines["cuda"] == lines["cpu"]
+    assert any(ln.startswith("DEBUG: New Kmer hash") for ln in lines["cuda"])

@@ -98,16 +98,21 @@ def test_growth_between_dispatch_and_overflowing_retire(tmp_path, capsys):
 @pytest.mark.parametrize("changes,ok", [
     (dict(), True),
     (dict(ksize=13, depth=200000, shards=2), False),   # depth/shard > 65535
-    (dict(ksize=21, mode="relaxed"), False),            # wide, relaxed
+    (dict(ksize=21, table="hashed"), False),            # wide, hashed
     (dict(table="direct"), False),
-    (dict(mode="relaxed"), False),
-    (dict(checkpoint_every=5), False),
-    (dict(debug=2), False),
+    (dict(mode="relaxed", table="direct"), False),      # direct, relaxed
+    (dict(checkpoint_every=5, n_devices=2), False),
+    (dict(debug=5), False),                             # tiers 0..4 run
     (dict(spectrum=True), False),
     (dict(seed_table="x.tsv"), False),
     (dict(n_devices=2), False),
     (dict(sharding="global"), False),
     (dict(profile_dir="trace"), False),
+    (dict(mode="relaxed"), True),
+    (dict(ksize=21, mode="relaxed"), True),
+    (dict(checkpoint_every=5, resume=True), True),
+    (dict(debug=2), True),
+    (dict(debug=4, ksize=25), True),
 ])
 def test_table_rule_and_unported_options(changes, ok):
     cfg = Config(forward_files=("a.fa",), single=True, **changes)

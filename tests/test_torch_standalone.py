@@ -47,6 +47,30 @@ def test_port_cli_runs_golden_without_jax_package(tmp_path, k, golden):
             (GOLDEN / golden / name).read_bytes(), name
 
 
+def test_port_cli_relaxed_checkpoints_debug3_without_jax_package(tmp_path):
+    """The modules of relaxed mode, checkpoints and the debug tiers (the
+    codec, the shadow, the checkpoint manager) import nothing of JAX
+    either: a run with all three, on the first 300 pairs."""
+    inputs = []
+    for name in ("a1", "b1"):
+        lines = (DATA / f"{name}.fasta").read_text().splitlines(True)
+        (tmp_path / f"{name}.fa").write_text("".join(lines[:600]))
+        inputs.append(str(tmp_path / f"{name}.fa"))
+    args = ["-f", inputs[0], "-r", inputs[1], "-t", "fa", "-o", "fa",
+            "-k", "15", "-d", "4", "--mode", "relaxed", "--checkpoint-every",
+            "1", "--checkpoint-dir", str(tmp_path / "ckpt"), "--debug", "3",
+            "--batch-reads", "100", "--device", "cpu",
+            "--out-dir", str(tmp_path / "out")]
+    proc = subprocess.run([sys.executable, "-c", _RUN, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout[-2000:]
+    assert "DEBUG: New Kmer hash: " in proc.stdout
+    assert "Thread 0 - Sequence pair 300 " in proc.stdout
+    assert (tmp_path / "ckpt" / "manifest.json").exists()
+    assert (tmp_path / "ckpt" / "shadow0.npz").exists()
+
+
 def _flags(parser):
     return {(a.dest, tuple(a.option_strings), repr(a.default), a.nargs, a.type)
             for a in parser._actions if a.dest != "help"}

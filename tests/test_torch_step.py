@@ -106,10 +106,14 @@ def check_step_many_equals_steps():
 
 
 def test_relaxed_mode_not_ported():
-    with pytest.raises(NotImplementedError):
-        BatchStep(BucketTable(K, rows=128), k=K, depth_per_shard=DEPTH,
-                  coverage=COVERAGE, canonical=False, paired=False,
-                  mode="relaxed")
+    """Relaxed mode is ported now (tests/test_torch_relaxed.py); a mode
+    that is neither exact nor relaxed is refused."""
+    kw = dict(k=K, depth_per_shard=DEPTH, coverage=COVERAGE,
+              canonical=False, paired=False)
+    assert BatchStep(BucketTable(K, rows=128), mode="relaxed", **kw).relaxed
+    assert not BatchStep(BucketTable(K, rows=128), **kw).relaxed
+    with pytest.raises(ValueError, match="exact or relaxed"):
+        BatchStep(BucketTable(K, rows=128), mode="fast", **kw)
 
 
 @pytest.mark.parametrize("rule", ["and", "avg"])

@@ -74,7 +74,7 @@ def test_table_rule_takes_wide_k(k):
 
 @pytest.mark.parametrize("changes", [
     dict(ksize=32),
-    dict(ksize=25, mode="relaxed"),
+    dict(ksize=25, debug=5),
     dict(ksize=25, table="hashed"),
     dict(ksize=25, depth=70000),
 ])
