@@ -93,9 +93,28 @@ Phases, each of which fails the run on error:
 10. The debug tiers: tests/data/{a1,b1}.fasta -t fa -o fa -k 15 -d 4
    --debug 4 on cuda and on cpu: stdout equal line for line but for the
    wall-clock lines, the batch round-trip passing on every batch.
+11. The fallback tables (direct, k <= 15; hashed, any k). First (with
+   --kernels, right after phase 2), in a process of its own, the hashed
+   table's find-or-insert kernel against its plain version, as phase 2
+   checks and times the others: one k = 25 batch (16384 reads x 150 bp)
+   into a table of 2^27 slots after a 4-batch seed pass, and again after
+   random codes fill it to 0.45 load. Equal sets of (code, count), new
+   and unresolved codes, and observed counts; its bytes are counted on the
+   card from the probes the kernel made. Then both goldens on cuda with
+   --table direct -k 15 and --table hashed -k 25; phase 4's 1,000,000
+   pairs with --table direct -k 15 (a dense 4^15 x 4 B table) and
+   --table hashed -k 25 -m 1 (2^26 slots, which must grow): outputs
+   byte-identical to phases 4 and 5, spectra equal to theirs, no dropped
+   insert, every state tensor on the card, the hashed kernel launched on
+   the hashed path and none of K1-K5 on either; each prints its wall time,
+   peak device memory, table bytes, doublings and the device time of its
+   replay snapshots. The first 20,000 pairs of each also run on the cpu
+   (bytes equal), and -d 70000 through --table auto must resolve to
+   direct (k = 15) and hashed (k = 25), equal on cuda and cpu.
 
-Every phase prints "phase N: start" first; a phase that fails prints its
-name and the traceback on standard output, and the script exits non-zero.
+Every phase prints "phase N: start" first and "phase N: done in S s" at its
+end; a phase that fails prints its name and the traceback on standard
+output, and the script exits non-zero.
 Phases 7 to 10 each zero the kernel launch counts before their runs and
 fail if a kernel of their path was never launched.
 
@@ -103,17 +122,19 @@ Standard output ends with one JSON line of per-kernel results, then
 {"ok": true, "device": {...}} as the last line. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 
-With --kernels it runs phases 1 and 2 only and ends with the per-kernel
-line (no launches, no "ok" line). To time one version of the kernels
-against another in turns on one card, copy this script into a checkout of
-each version and run them one after another in one session, for example
-old, new, new, old: each builds and times its own checkout's kernels.
+With --kernels it runs phases 1, 2 and 11's kernel check only and ends
+with the per-kernel line (no launches, no "ok" line). To time one version
+of the kernels against another in turns on one card, copy this script into
+a checkout of each version and run them one after another on that card,
+for example old, new, new, old: each builds and times its own checkout's
+kernels.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import contextlib
+import hashlib
 import io
 import itertools
 import json
@@ -150,6 +171,10 @@ RELAXED_MAX_DELTA = 0.01  # phase 8: largest share of changed decisions
 CKPT_BATCH_PAIRS = 2048   # phase 9: 10 batches of the 20,000 pairs
 CKPT_DEPTH = 5            # phase 9: low enough that pairs are skipped
 CKPT_STOP_AFTER = 3       # phase 9: retires before the interrupt
+HASH_SLOTS = 1 << 27      # phase 11: the hashed kernel's table
+HASH_LOAD = 0.45          # phase 11: its fuller fill
+AUTO_DEPTH = 70000        # phase 11: above the bucket table's 65535
+HASHED_KERNEL_FLAG = "--hashed-kernel"  # phase 11's kernel check, apart
 
 REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
     "encode_keys": "nomalise_kmers_multi_large_tpu/ops/encode_kernel.py:289",
@@ -160,6 +185,8 @@ REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
     "rank_cand_scan_wide": "nomalise_kmers_multi_large_tpu/ops/segscan.py:194",
     "bucket_batch_wide":
         "nomalise_kmers_multi_large_tpu/ops/bucket_kernel.py:1127",
+    "hashed_insert":
+        "nomalise_kmers_multi_large_tpu/table/hashed.py:57 (XLA, not Pallas)",
 }
 #: kernel -> its device function, as a profile names it ("::<name>(")
 DEVICE_FUNCTIONS = {
@@ -169,12 +196,15 @@ DEVICE_FUNCTIONS = {
     "encode_keys_wide": "encode_keys_wide_kernel",
     "rank_cand_scan_wide": "rank_cand_kernel<true>",
     "bucket_batch_wide": "bucket_batch_wide_kernel",
+    "hashed_insert": "hashed_insert_kernel",
 }
 #: the kernels each path runs; a path's run must launch every one of them
 PATH_KERNELS = {
     15: ("encode_keys", "rank_cand_scan", "bucket_batch"),
     25: ("encode_keys_wide", "rank_cand_scan_wide", "bucket_batch_wide"),
 }
+#: K1-K5, which the direct and hashed paths must not launch
+BUCKET_KERNELS = PATH_KERNELS[15] + PATH_KERNELS[25]
 
 
 def card_line() -> str:
@@ -846,15 +876,15 @@ def phase_kernels_large(rng, dev):
     torch.cuda.empty_cache()
 
 
-def phase_golden(k: int, case: str):
+def phase_golden(k: int, case: str, table: str = "auto"):
     from nomalise_kmers_multi_large_torch import cli
 
-    out = os.path.join(WORK, f"golden_{case}")
+    out = os.path.join(WORK, f"golden_{case}_{table}")
     data = os.path.join(ROOT, "tests", "data")
     rc = cli.main(["-f", os.path.join(data, "a1.fasta"),
                    "-r", os.path.join(data, "b1.fasta"), "-t", "fa", "-o",
-                   "fa", "-k", str(k), "-d", "4", "--device", "cuda",
-                   "--out-dir", out])
+                   "fa", "-k", str(k), "-d", "4", "--table", table,
+                   "--device", "cuda", "--out-dir", out])
     if rc != 0:
         raise AssertionError(f"golden CLI run exited {rc}")
     gold = os.path.join(ROOT, "tests", "golden", case)
@@ -864,7 +894,9 @@ def phase_golden(k: int, case: str):
                 open(os.path.join(gold, name), "rb") as b:
             if a.read() != b.read():
                 raise AssertionError(f"golden mismatch: {case}/{name}")
-    print(f"phase 3: golden {case} byte-identical on cuda")
+    print(f"phase {3 if table == 'auto' else 11}: golden {case} "
+          f"(--table {table}) byte-identical on cuda")
+    shutil.rmtree(out)
 
 
 def write_inputs(rng):
@@ -887,9 +919,9 @@ def write_inputs(rng):
 def run_engine(k: int, device, files, sub: str, extra=(), run=True):
     """Normalizer.run() at -k `k` with the reference defaults on `files`
     (forward, reverse; either may be a list of files) and the options
-    `extra`, writing under WORK; returns (normalizer, report, out dir,
-    first rows). With run=False the normalizer is returned unrun (report
-    None)."""
+    `extra`, writing under WORK; returns (normalizer, report, out dir, the
+    table's first descriptor). With run=False the normalizer is returned
+    unrun (report None)."""
     from nomalise_kmers_multi_large_torch.cli import config_from_args
     from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 
@@ -900,9 +932,24 @@ def run_engine(k: int, device, files, sub: str, extra=(), run=True):
                                "--batch-reads", "8192", "-e",
                                "--out-dir", out, *extra])
     norm = Normalizer(cfg, device)
-    rows0 = norm.tables[0].rows
+    t0 = norm.tables[0]
     rep = norm.run() if run else None
-    return norm, rep, out, rows0
+    return norm, rep, out, t0
+
+
+def out_digests(out: str) -> dict:
+    """sha256 of every output file of a run directory, by name."""
+    return {name: hashlib.sha256(open(os.path.join(out, name), "rb").read())
+            .hexdigest() for name in sorted(os.listdir(out))
+            if name.startswith("output_")}
+
+
+def spectrum_of(norm):
+    """(distinct, total, histogram) of shard 0's table."""
+    from nomalise_kmers_multi_large_torch.models.spectrum import spectrum
+
+    sp = spectrum(norm.tables[0], norm.states[0])
+    return sp.distinct_kmers, sp.total_kmers, sp.histogram.tolist()
 
 
 def kept_ids(out: str, k: int) -> np.ndarray:
@@ -940,9 +987,10 @@ def phase_main(dev, k: int, files, check_files, label: str):
     backend.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    norm, rep, out, rows0 = run_engine(k, dev, files, "main")
+    norm, rep, out, first = run_engine(k, dev, files, "main")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    rows0 = first.rows
     launches = require_launches(label, k)
     t = norm.tables[0]
     st = norm.states[0]
@@ -970,7 +1018,9 @@ def phase_main(dev, k: int, files, check_files, label: str):
     if lines != 4 * rep.total_printed:
         raise AssertionError(f"{lines} output lines for "
                              f"{rep.total_printed} printed pairs")
-    exact = dict(state=st, rows=t.rows, kept=kept_ids(out, k))
+    # phase 11 holds the fallback tables to these outputs and this spectrum
+    exact = dict(state=st, rows=t.rows, kept=kept_ids(out, k),
+                 digests=out_digests(out), spectrum=spectrum_of(norm))
 
     # the same engine on the CPU plain path, on the first pairs
     outs = [run_engine(k, d, check_files, f"check_{d}")[2]
@@ -1063,10 +1113,11 @@ def phase_ceiling(dev, files):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    norm, rep, out, rows0 = run_engine(25, dev, ([files[0], f3],
+    norm, rep, out, first = run_engine(25, dev, ([files[0], f3],
                                                  [files[1], f4]), "ceiling")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    rows0 = first.rows
     launches = require_launches("phase 7", 25)
     t, st = norm.tables[0], norm.states[0]
     print(f"phase 7: k=25: {rep.total_processed:,} pairs in {wall:.2f} s "
@@ -1264,6 +1315,225 @@ def phase_debug(dev):
         raise AssertionError("phase 10: cuda and cpu debug output differ")
 
 
+def phase_hashed_kernel(rng, dev) -> dict:
+    """The hashed table's find-or-insert kernel against its plain version
+    on one k = 25 batch into a HASH_SLOTS table, after a 4-batch seed pass
+    and again at HASH_LOAD: the same (code, count) sets, new and unresolved
+    codes and observed counts; then both timed from the same planes."""
+    from nomalise_kmers_multi_large_torch.ops import codec
+    from nomalise_kmers_multi_large_torch.ops.hashed_kernel import (
+        hashed_insert, hashed_insert_plain,
+    )
+    from nomalise_kmers_multi_large_torch.ops.streamrank import (
+        sorted_occurrence_stream,
+    )
+
+    k, reads = 25, BATCH_READS
+    batches = read_batches(rng, dev, 5)
+    lengths = torch.full((reads,), 150, dtype=torch.int32, device=dev)
+
+    def stream(bases):
+        code = codec.window_codes(bases, k, False)
+        valid = codec.code_validity(lengths, code, k)
+        return sorted_occurrence_stream(code.reshape(-1), valid.reshape(-1))
+
+    keys = torch.zeros(HASH_SLOTS, dtype=torch.int64, device=dev)
+    counts = torch.zeros(HASH_SLOTS, dtype=torch.int32, device=dev)
+    for bases in batches[:4]:  # seed pass: count-0 inserts of the heads
+        s = stream(bases)
+        hashed_insert(keys, torch.where(s.boundary, s.code, 0),
+                      outputs=False)
+    s = stream(batches[4])
+    heads = torch.where(s.boundary, s.code, 0)
+    n = heads.numel()
+    pos = torch.arange(n, device=dev)
+
+    def observed(out):
+        # a run's head sits rank - 1 places before each of its occurrences
+        return torch.where(s.valid, out.prior[pos - s.rank + 1] + s.rank, 0)
+
+    def table(kp, cp):
+        occ = kp != 0
+        code, order = torch.sort(kp[occ])
+        return code, cp[occ][order]
+
+    def check(label) -> dict:
+        start = (keys.clone(), counts.clone())
+        twins = (keys.clone(), counts.clone())
+
+        def reset():
+            keys.copy_(start[0])
+            counts.copy_(start[1])
+
+        used = int((keys != 0).sum())
+        got = hashed_insert(keys, heads, s.mult, counts)
+        want = hashed_insert_plain(twins[0], heads, s.mult, twins[1])
+        err = max_abs_err([*zip(table(keys, counts), table(*twins)),
+                           (got.stats[:2], want.stats[:2]),
+                           (observed(got), observed(want))])
+        new, over, probes = (int(x) for x in got.stats)
+        n_heads = int(s.boundary.sum())
+        # streamed: code (8 B) and mult (4 B) in, slot and prior (4 B
+        # each) out, every element; random 32 B sectors: one per probe of
+        # keys, and a resolved head's count sector read and written back
+        nbytes = 20 * n + 32 * probes + 64 * (n_heads - over)
+        print(f"{label}: {used:,} of {HASH_SLOTS:,} slots used "
+              f"({used / HASH_SLOTS:.3f} load); a batch of {reads:,} reads: "
+              f"{n:,} windows, {n_heads:,} distinct codes, {new:,} new, "
+              f"{over:,} unresolved, {probes:,} probes "
+              f"({probes / max(n_heads, 1):.3f} a code); {nbytes:,} bytes "
+              f"of work; max_abs_err {err}")
+        del twins, want
+        out = timed("hashed_insert",
+                    lambda: hashed_insert(keys, heads, s.mult, counts),
+                    lambda: hashed_insert_plain(keys, heads, s.mult, counts),
+                    nbytes, err, setup=reset)
+        reset()
+        del start
+        out.update(load=used / HASH_SLOTS, probes=probes, distinct=n_heads)
+        return out
+
+    out = {"hashed_insert": check("phase 11 (kernel, 4-batch fill)")}
+    # the fuller fill: random distinct nonzero 50-bit codes (k = 25 codes)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 8)
+    need = int(HASH_LOAD * HASH_SLOTS) - int((keys != 0).sum())
+    fill = torch.unique(torch.randint(1, 1 << 50, (need,), device=dev,
+                                      generator=g))
+    hashed_insert(keys, fill, outputs=False)
+    del fill
+    full = check(f"phase 11 (kernel, {HASH_LOAD} load)")
+    out["hashed_insert"]["full_fill"] = full
+    report(out, "phase 11 (kernel)")
+    report({"hashed_insert": full}, f"phase 11 (kernel, {HASH_LOAD} load)")
+    del keys, counts, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hashed_kernel_apart() -> dict:
+    """phase_hashed_kernel in a process of its own (this script with
+    HASHED_KERNEL_FLAG), whose printed lines it passes on and whose last
+    line is the result. Run after phase 10 in the main process, its
+    profiles held fewer of the kernel's events than calls, every time; run
+    apart, no earlier phase shapes its timing or its profiles."""
+    got = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          HASHED_KERNEL_FLAG], cwd=ROOT, capture_output=True,
+                         text=True, timeout=900)
+    lines = got.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if got.returncode != 0 or not lines:
+        print(got.stdout[-2000:] + got.stderr[-4000:])
+        raise AssertionError(f"the kernel check exited {got.returncode}")
+    return json.loads(lines[-1])
+
+
+def phase_fallback(dev, files, check_files, ref: dict) -> dict:
+    """The direct and hashed tables end to end: goldens, phase 4's pairs
+    held to phases 4/5 (`ref`: k -> (output digests, spectrum)), the first
+    pairs on cuda and cpu, and --table auto above depth 65535. Returns the
+    hashed run's launches."""
+    from nomalise_kmers_multi_large_torch import backend
+    from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
+
+    phase_golden(15, "fasta_in_paired_k15", "direct")
+    phase_golden(25, "fasta_in_paired_k25_jax", "hashed")
+
+    snaps = []
+    orig = Normalizer._replay_snapshot
+
+    def timed_snapshot(self, shard):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        copy = orig(self, shard)
+        b.record()
+        if copy is not None:
+            snaps.append((a, b))
+        return copy
+
+    launches = {}
+    for table, k, extra in (("direct", 15, []), ("hashed", 25, ["-m", "1"])):
+        opts = ["--table", table, *extra]
+        snaps.clear()
+        backend.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        Normalizer._replay_snapshot = timed_snapshot
+        try:
+            t0 = time.perf_counter()
+            norm, rep, out, first = run_engine(k, dev, files, table, opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            Normalizer._replay_snapshot = orig
+        peak = torch.cuda.max_memory_allocated()
+        got = backend.launches()
+        t, st = norm.tables[0], norm.states[0]
+        doublings = (t.capacity // first.capacity).bit_length() - 1
+        snap_ms = sum(a.elapsed_time(b) for a, b in snaps)
+        slot_bytes = 4 if table == "direct" else 12
+        same = out_digests(out) == ref[k][0]
+        spec = spectrum_of(norm)
+        on_card = all(x.device == dev for x in st if x is not None)
+        print(f"phase 11: --table {table} -k {k}: {rep.total_processed:,} "
+              f"pairs in {wall:.2f} s ({rep.total_processed / wall:,.0f} "
+              f"pairs/s), seed pass included; printed {rep.total_printed:,}"
+              f"; distinct k-mers {rep.max_total_kmers:,}; table "
+              f"{first.capacity:,} -> {t.capacity:,} slots "
+              f"({t.capacity * slot_bytes:,} bytes), {doublings} doublings;"
+              f" overflow {int(st.overflow)}; peak device memory "
+              f"{peak:,} bytes; replay "
+              f"snapshots {len(snaps)} x, {snap_ms:.1f} ms of device time; "
+              f"outputs equal to phase {4 if k == 15 else 5}'s: {same}; "
+              f"spectrum (distinct {spec[0]:,}, total {spec[1]:,}) equal: "
+              f"{spec == ref[k][1]}; states on the card: {on_card}; "
+              f"launches {got}")
+        bucket = [n for n in BUCKET_KERNELS if got[n]]
+        if bucket or (got["hashed_insert"] > 0) != (table == "hashed"):
+            raise AssertionError(f"phase 11: {table}: launches {got}")
+        if not same or spec != ref[k][1] or not on_card:
+            raise AssertionError(f"phase 11: {table}: differs from the "
+                                 "bucket run, or a state left the card")
+        if int(st.overflow) or (table == "hashed" and doublings < 1):
+            raise AssertionError(f"phase 11: {table}: overflow "
+                                 f"{int(st.overflow)}, {doublings} doublings")
+        if table == "hashed":
+            launches["hashed_insert"] = got["hashed_insert"]
+        del norm, st
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+
+        outs = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            o = run_engine(k, d, check_files, f"{table}_check_{d}", opts)[2]
+            outs[d] = (out_digests(o), time.perf_counter() - t0)
+            shutil.rmtree(o)
+        same = outs["cuda"][0] == outs["cpu"][0]
+        print(f"phase 11: --table {table} -k {k}: first {CHECK_PAIRS:,} "
+              f"pairs: cuda ({outs['cuda'][1]:.2f} s) and cpu "
+              f"({outs['cpu'][1]:.2f} s) outputs byte-identical: {same}")
+        if not same:
+            raise AssertionError(f"phase 11: {table}: cuda and cpu differ")
+
+    for k, kind in ((15, "direct"), (25, "hashed")):
+        outs = {}
+        for d in ("cuda", "cpu"):
+            norm, rep, o, _ = run_engine(k, d, check_files, f"auto_{d}",
+                                         ["-d", str(AUTO_DEPTH)])
+            outs[d] = (norm.cfg.table, out_digests(o), totals(rep))
+            shutil.rmtree(o)
+            del norm
+        ok = outs["cuda"] == outs["cpu"] and outs["cuda"][0] == kind
+        print(f"phase 11: --table auto -k {k} -d {AUTO_DEPTH}: resolved to "
+              f"{outs['cuda'][0]} (cuda) and {outs['cpu'][0]} (cpu); "
+              f"totals {outs['cuda'][2]}; outputs equal: {ok}")
+        if not ok:
+            raise AssertionError(f"phase 11: auto at k={k}: {outs}")
+    return launches
+
+
 def ptxas_usage(log: str) -> list[str]:
     """One line per kernel of a `nvcc -Xptxas -v` log: its registers,
     shared memory and spill stores."""
@@ -1296,8 +1566,12 @@ def phase(name: str, fn, *args):
     and the traceback on standard output (so a lost stderr cannot hide
     which phase failed), and the exception goes on."""
     print(f"phase {name}: start", flush=True)
+    t0 = time.perf_counter()
     try:
-        return fn(*args)
+        out = fn(*args)
+        print(f"phase {name}: done in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
     except BaseException:
         print(f"phase {name}: FAILED", flush=True)
         traceback.print_exc(file=sys.stdout)
@@ -1311,7 +1585,9 @@ def main() -> int:
     mode.add_argument("--profile", action="store_true",
                       help="also run phase 6, the device-time profile")
     mode.add_argument("--kernels", action="store_true",
-                      help="run phases 1 and 2 only")
+                      help="run phases 1, 2 and the kernel check of 11 only")
+    mode.add_argument(HASHED_KERNEL_FLAG, action="store_true",
+                      help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1319,6 +1595,11 @@ def main() -> int:
     from nomalise_kmers_multi_large_torch import backend
 
     dev = torch.device("cuda", 0)
+    if args.hashed_kernel:  # the process phase_hashed_kernel_apart starts
+        backend.build()
+        print(json.dumps(phase_hashed_kernel(np.random.default_rng(SEED + 9),
+                                             dev)))
+        return 0
     print(card_line())
 
     def build():
@@ -1344,7 +1625,12 @@ def main() -> int:
         phase("2 (long stream)", phase_scan_long, dev)
         phase("2 (large tables)", phase_kernels_large,
               np.random.default_rng(SEED + 7), dev)
+
+        def hashed_kernel():
+            timing.update(phase("11 (kernel)", phase_hashed_kernel_apart))
+
         if args.kernels:
+            hashed_kernel()
             print(json.dumps({"kernels": [
                 {"name": name, "source": src, **timing[name]}
                 for name, src in backend.KERNEL_SOURCES.items()]}))
@@ -1363,9 +1649,13 @@ def main() -> int:
                       {n: launches[n] for n in PATH_KERNELS[k]}, "phase 6")
         phase("7", phase_ceiling, dev, files)
         phase("8", phase_relaxed, dev, files, exact, want)
+        ref = {k: (exact[k]["digests"], exact[k]["spectrum"]) for k in exact}
         del exact
         phase("9", phase_checkpoint, dev, check_files)
         phase("10", phase_debug, dev)
+        hashed_kernel()
+        launches.update(phase("11", phase_fallback, dev, files, check_files,
+                              ref))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card_line())

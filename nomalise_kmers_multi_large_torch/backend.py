@@ -37,6 +37,7 @@ KERNEL_SOURCES = {
     "encode_keys_wide": "encode_wide.cu",
     "rank_cand_scan_wide": "segscan.cu",
     "bucket_batch_wide": "bucket_wide.cu",
+    "hashed_insert": "hashed.cu",
 }
 
 _launches = {name: 0 for name in KERNEL_SOURCES}

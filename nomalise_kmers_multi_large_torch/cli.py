@@ -171,10 +171,14 @@ def main(argv=None) -> int:
 
     os.makedirs(cfg.out_dir, exist_ok=True)
     norm = Normalizer(cfg, resolve_device(device))
-    # startup table report (reference parse_arguments :686): fingerprint
-    # and count planes of int32, plus the wide table's w2 plane at k > 16
+    # startup table report (reference parse_arguments :686): an int32 count
+    # per slot, beside an int64 code (hashed), or int32 fingerprint planes,
+    # two of them on the wide bucket table at k > 16 (bucket)
     cap = norm.tables[0].capacity
-    bytes_per_slot = 12 if cfg.ksize > 16 else 8
+    if cfg.table == "bucket":
+        bytes_per_slot = 12 if cfg.ksize > 16 else 8
+    else:
+        bytes_per_slot = 4 if cfg.table == "direct" else 12
     print(
         f"{cfg.table} count table: {cap:,} slots per shard "
         f"(maximum for k={cfg.ksize} is {4 ** cfg.ksize:,}); "
@@ -182,7 +186,33 @@ def main(argv=None) -> int:
         f"each of {cfg.shards} shards\n"
     )
     norm.run()
+    if cfg.spectrum:
+        _print_spectra(norm)
     return 0
+
+
+def _print_spectra(norm):
+    """One spectrum block per shard, as the JAX CLI prints them (with -p N
+    each shard counted ~1/N of the stream, and tables cannot be pooled: one
+    k-mer holds a slot in every shard)."""
+    from nomalise_kmers_multi_large_torch.models.spectrum import spectrum
+
+    n = len(norm.states)
+    for s in range(n):
+        sp = spectrum(norm.tables[s], norm.states[s])
+        if n == 1:
+            print("\n--- Kmer Spectrum ---")
+        else:
+            print(f"\n--- Kmer Spectrum (shard {s} of {n}; each "
+                  f"shard counts ~1/{n} of the stream) ---")
+        print(f"Distinct kmers: {sp.distinct_kmers:,}")
+        print(f"Total kmer instances: {sp.total_kmers:,}")
+        print(f"Coverage peak: {sp.coverage_peak:,}")
+        print(f"Genome size estimate: {sp.genome_size_estimate:,}")
+        head = sp.histogram[:32]
+        print("Histogram (multiplicity: kmers): "
+              + ", ".join(f"{i}:{int(v):,}" for i, v in enumerate(head)
+                          if v))
 
 
 if __name__ == "__main__":

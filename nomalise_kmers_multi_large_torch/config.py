@@ -3,18 +3,23 @@
 ``Config`` is the port's copy of nomalise_kmers_multi_large_tpu/config.py
 (the reference's ``struct config_t cfg`` and its validation rules,
 normalise_kmers_multi_large.c:208-231, parse_arguments :520-745, plus the
-engine's extensions). ``port_config`` resolves ``auto`` to the bucket table
-and rejects, with a ConfigError, every table and option the port does not
-run yet, before ``validate``; so ``validate`` keeps only the rules that can
-still fire there.
+engine's extensions). ``port_config`` resolves ``auto`` to a table kind
+and rejects, with a ConfigError, every option the port does not run yet,
+before ``validate``; so ``validate`` keeps only the rules that can still
+fire there.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Literal
 
 __all__ = ["Config", "ConfigError", "port_config"]
 
+#: reference INITIAL_CAPACITY (normalise_kmers_multi_large.c:137): the
+#: hashed table's default slot count before rounding to a power of two
+INITIAL_CAPACITY = 67_108_879
+BYTES_PER_SLOT = 16  # reference kmer_t size; the --memory_start contract
 MAX_K = 31
 MIN_K = 5
 MAX_SHARDS = 256  # reference MAX_THREADS (normalise_kmers_multi_large.c:142)
@@ -105,6 +110,24 @@ class Config:
         return _normalize_format(self.outformat, "Output") == "fq"
 
     @property
+    def direct_capacity(self) -> int:
+        return 4 ** self.ksize
+
+    @property
+    def initial_hash_capacity(self) -> int:
+        """The hashed table's initial slots per shard: --memory_start GB
+        across the shards at 16 B a slot (or INITIAL_CAPACITY), at most
+        4^k (parse_arguments :676-684), rounded up to a power of two, at
+        least 1024."""
+        if self.memory_gb > 0:
+            slots = int(self.memory_gb * (1 << 30) / BYTES_PER_SLOT
+                        / self.shards)
+        else:
+            slots = INITIAL_CAPACITY
+        slots = min(slots, 4 ** self.ksize)
+        return 1 << max(10, math.ceil(math.log2(max(2, slots))))
+
+    @property
     def records_to_seed(self) -> int:
         """Reference: 1 + SEED_NUMBER / forward_file_count (main :2242)."""
         if self.seed_records > 0:
@@ -189,22 +212,19 @@ class Config:
 
 
 def port_config(cfg: Config) -> Config:
-    """Resolve ``table="auto"`` to the bucket table (depth per shard <=
-    65535; the wide bucket table at k = 16..31), reject what is not ported,
-    and validate."""
+    """Resolve ``table="auto"``, reject what is not ported, and validate.
+
+    ``auto`` is the bucket table (the wide one at k = 16..31) while the
+    depth per shard fits its exact counting range (<= 65535), and above
+    that the direct table (k <= 15) or the hashed table: the JAX package's
+    rule on an accelerator backend, kept on every device."""
     if cfg.table == "auto":
+        table = "bucket"
         if cfg.depth_per_shard > MAX_BUCKET_DEPTH:
-            raise ConfigError(
-                f"depth per shard {cfg.depth_per_shard} > 65535 needs the "
-                "direct or hashed table, which are not ported yet")
-        cfg = dataclasses.replace(cfg, table="bucket")
-    if cfg.table != "bucket":
-        raise ConfigError(f"--table {cfg.table} is not ported yet; only the "
-                          "bucket table runs")
+            table = "direct" if cfg.ksize <= 15 else "hashed"
+        cfg = dataclasses.replace(cfg, table=table)
     unported = [
         (cfg.debug > 4, f"--debug {cfg.debug} (0 to 4 run)"),
-        (cfg.spectrum, "--spectrum"),
-        (bool(cfg.seed_table), "--seed-table"),
         (cfg.n_devices > 1, f"--devices {cfg.n_devices} (one device only)"),
         (cfg.sharding == "global", "--sharding global"),
         (bool(cfg.profile_dir), "--profile"),

@@ -6,21 +6,25 @@ that let a run resume exactly. The files are the JAX package's, so a
 checkpoint written by either package loads in the other:
 
   manifest.json   config fingerprint + stream position + counters + sizes
-  shard{N}.npz    table planes of shard N: counts, keys, keys2 (wide table
-                  at k > 16), used, overflow; int32, as the JAX package
-                  writes a TableState
+  shard{N}.npz    table planes of shard N: counts, keys (none on the
+                  direct table), keys2 (wide table at k > 16), used,
+                  overflow; int32, and the hashed table's keys as uint32
+                  (hi, lo) planes [2, C], as the JAX package writes a
+                  TableState (table/base.py state_to_numpy)
+  seeded_lo.npy   the direct table's seeded codes (uint32)
   shadow{N}.npz   the --debug > 2 shadow of shard N (codes, vals)
 
 Arrays are numpy on disk and torch tensors on the engine's device on load.
 Each file is written to a temporary name and renamed into place, so a crash
 mid-save keeps the previous snapshot.
 
-One repair of the JAX package's loader: it restores ``shadow*.npz`` files
-whenever they exist, so a directory reused by a run without ``--debug`` > 2
-hands a later resume another run's stale shadows. The port's manifest
-records whether shadows were saved (``"shadows"``), and the loader reads
-them only then; a manifest without the key (one the JAX package wrote)
-reads as "no shadows".
+One repair of the JAX package's loader: it restores ``shadow*.npz`` and
+``seeded_lo.npy`` whenever they exist, so a directory reused by another run
+hands a later resume that run's stale files. The port's manifest records
+whether each was saved (``"shadows"``, ``"seeded_lo"``), and the loader
+reads them only then. A manifest the JAX package wrote has neither key: it
+reads as "no shadows", and as "seeded_lo.npy saved" exactly when its table
+is the direct one, for which the JAX package always writes the file.
 """
 from __future__ import annotations
 
@@ -31,14 +35,14 @@ import tempfile
 from typing import Optional
 
 import numpy as np
-import torch
 
-from nomalise_kmers_multi_large_torch.table.base import TableState
+from nomalise_kmers_multi_large_torch.table.base import (
+    TableState, state_from_numpy, state_to_numpy,
+)
 
 
 def _fingerprint(cfg) -> dict:
-    """The JAX package's fingerprint; ``table`` is the resolved kind, which
-    the port's config rule has made "bucket"."""
+    """The JAX package's fingerprint; ``table`` is the resolved kind."""
     return {
         "forward_files": list(cfg.forward_files),
         "reverse_files": list(cfg.reverse_files),
@@ -64,6 +68,7 @@ class ResumePoint:
     counters: list[dict]       # per-shard processed/printed/skipped
     output_sizes: dict         # path -> byte size at snapshot
     rr: int                    # round-robin cursor
+    seeded_lo: Optional[np.ndarray] = None  # the direct table's seeds
     shadows: Optional[list] = None  # per-shard debug>2 shadow counts
 
 
@@ -83,7 +88,7 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, states, counters, file_index: int, records_done: int,
-             output_paths: list[str], rr: int, shadows=None):
+             output_paths: list[str], rr: int, seeded_lo=None, shadows=None):
         os.makedirs(self.dir, exist_ok=True)
         if shadows is not None:
             for s, sh in enumerate(shadows):
@@ -94,11 +99,14 @@ class CheckpointManager:
                     vals=np.fromiter(sh.counts.values(), np.int64,
                                      len(sh.counts)))
         for s, state in enumerate(states):
-            arrays = {name: getattr(state, name).cpu().numpy()
+            st = state_to_numpy(state)
+            arrays = {name: getattr(st, name)
                       for name in ("counts", "used", "overflow", "keys",
                                    "keys2")
-                      if getattr(state, name) is not None}
+                      if getattr(st, name) is not None}
             self._save_npz(f"shard{s}.npz", **arrays)
+        if seeded_lo is not None:
+            np.save(os.path.join(self.dir, "seeded_lo.npy"), seeded_lo)
         manifest = {
             "config": _fingerprint(self.cfg),
             "file_index": file_index,
@@ -114,6 +122,7 @@ class CheckpointManager:
             },
             "rr": rr,
             "shadows": shadows is not None,
+            "seeded_lo": seeded_lo is not None,
         }
         fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".json.tmp")
         with os.fdopen(fd, "w") as f:
@@ -135,17 +144,15 @@ class CheckpointManager:
                 f"saved {manifest['config']} vs current {want}"
             )
 
-        def tensor(z, name):
-            if name not in z:
-                return None
-            return torch.from_numpy(
-                np.ascontiguousarray(z[name], dtype=np.int32)).to(device)
-
         states = []
         for s in range(self.cfg.shards):
             with np.load(os.path.join(self.dir, f"shard{s}.npz")) as z:
-                states.append(TableState(
-                    *(tensor(z, name) for name in TableState._fields)))
+                states.append(state_from_numpy(
+                    [z[name] if name in z else None
+                     for name in TableState._fields], device))
+        seeded = None
+        if manifest.get("seeded_lo", want["table"] == "direct"):
+            seeded = np.load(os.path.join(self.dir, "seeded_lo.npy"))
         shadows = None
         if manifest.get("shadows", False):
             shadows = []
@@ -159,6 +166,7 @@ class CheckpointManager:
             counters=manifest["counters"],
             output_sizes=manifest["output_sizes"],
             rr=manifest.get("rr", 0),
+            seeded_lo=seeded,
             shadows=shadows,
         )
         return states, rp

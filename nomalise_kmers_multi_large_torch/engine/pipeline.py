@@ -1,21 +1,24 @@
 """The streaming normalization engine on one device.
 
 Port of nomalise_kmers_multi_large_tpu/engine/pipeline.py::Normalizer for
-the bucket paths (k <= 15, and the wide table at k = 16..31): seed the
-table(s), open per-shard outputs, stream each input file (pair) in record
-batches through the batch step, and write the kept records. ``-p N`` gives
-N logical shards on the one device, each with its own table, outputs and
-``depth // N`` threshold.
+every table (bucket, k <= 15 and the wide one at k = 16..31; direct; hashed):
+seed the table(s), from the inputs or from a k-mer TSV (``--seed-table``),
+open per-shard outputs, stream each input file (pair) in record batches
+through the batch step, and write the kept records. ``-p N`` gives N logical
+shards on the one device, each with its own table, outputs and ``depth //
+N`` threshold. The direct table cannot show a seeded code (count 0), so its
+seeds are a host set, ``seeded_lo``, that occupancy and -P dumps read.
 
 CUDA work is asynchronous: a dispatch enqueues the batch step and returns,
 and the previous dispatch retires (keep mask to the host, records written)
 while the device runs. Around that loop:
 
-- growth: each shard's live occupancy (``state.used``, counted in-kernel) is
-  mirrored to the host at every retire, and the table doubles when it
-  crosses the headroom;
-- overflow grow-and-replay: a retire that sees new dropped inserts discards
-  the dispatch's results, grows the table from a copy taken before that
+- growth (bucket and hashed tables): each shard's live occupancy
+  (``state.used``, counted in-kernel) is mirrored to the host at every
+  retire, and the table doubles when it crosses the headroom;
+- overflow grow-and-replay: a retire that sees new dropped inserts (a full
+  bucket row, a code that found no free slot in 64 probes) discards the
+  dispatch's results, grows the table from a copy taken before that
   dispatch, and replays the batches on it;
 - checkpoints (``--checkpoint-every``, ``--resume``): a snapshot is taken
   only after a drain, when nothing is staged or in flight, so the table
@@ -64,7 +67,9 @@ from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
 from nomalise_kmers_multi_large_torch.ops.mix import (
     feistel_words_np, mix32_np,
 )
-from nomalise_kmers_multi_large_torch.table import TableState, make_table
+from nomalise_kmers_multi_large_torch.table import (
+    BucketTable, DirectTable, TableState, make_table,
+)
 from nomalise_kmers_multi_large_torch.utils.prefetch import PrefetchIterator
 from nomalise_kmers_multi_large_torch.utils.profiling import StageTimer
 
@@ -107,6 +112,8 @@ class Normalizer:
         self.counters = [ShardCounters(s) for s in range(cfg.shards)]
         self.report = RunReport()
         self.writers: Optional[list[ShardWriter]] = None
+        #: direct table: the host set of seeded codes (uint32), else None
+        self.seeded_lo: Optional[np.ndarray] = None
         self._pad = 0  # adaptive padded read length
         self._warned_long_reads = False
         self._steps_cache: dict = {}
@@ -161,6 +168,8 @@ class Normalizer:
         whenever the windows dispatched since the last one could have crossed
         the budget."""
         t = self.tables[shard]
+        if t.grow_headroom is None:
+            return  # the direct table never grows
         budget = t.grow_headroom * t.capacity
         if self._in_seed:
             self._unseen[shard] += inflow
@@ -248,13 +257,21 @@ class Normalizer:
     # ------------------------------------------------------------------
     def seed(self):
         """Sequential pre-pass (reference seed_kmer_hash): insert the k-mers
-        of the first records_to_seed records of EVERY input file with count
-        0, then copy the seeded table to every shard."""
+        of the first records_to_seed records of EVERY input file, or of the
+        --seed-table TSV, with count 0, then copy the seeded table to every
+        shard."""
         self._in_seed = True
         try:
-            self._seed_files()
+            if self.cfg.seed_table:
+                self._seed_from_tsv(self.cfg.seed_table)
+            else:
+                self._seed_files()
         finally:
             self._in_seed = False
+
+    @property
+    def _direct(self) -> bool:
+        return isinstance(self.tables[0], DirectTable)
 
     def _seed_files(self):
         cfg = self.cfg
@@ -264,6 +281,8 @@ class Normalizer:
             files.append(f)
             if i < len(cfg.reverse_files):
                 files.append(cfg.reverse_files[i])
+        # direct table: the seeded codes, marked on the device
+        present = self._seed_marks() if self._direct else None
         for path in files:
             fx = FastxFile(path, cfg.is_input_fastq, cfg.io_threads)
             remaining = n_seed
@@ -282,22 +301,88 @@ class Normalizer:
                 # seeding uses the strictly-greater length rule (len > k)
                 with self.timer.stage("seed"):
                     bases, lengths, _ = self._pack(batch, cfg.ksize + 1)
-                    self._maybe_grow(
-                        0, bases.shape[0] * (bases.shape[1] - cfg.ksize + 1))
-                    self._seed_checked(bases, lengths)
+                    if present is not None:
+                        self._mark_seeds(present, bases, lengths)
+                    else:
+                        self._maybe_grow(0, bases.shape[0]
+                                         * (bases.shape[1] - cfg.ksize + 1))
+                        self._seed_checked(bases, lengths)
                 remaining -= take
                 if remaining <= 0:
                     break
+        if present is not None:
+            # the device states stay zero: nothing to replicate
+            self.seeded_lo = self._seed_set(present)
+        else:
+            self._replicate_seeded_state()
+        if self._shadows is not None:
+            for s in range(1, len(self._shadows)):
+                self._shadows[s] = self._shadows[0].copy()
+
+    def _replicate_seeded_state(self):
+        """Prime shard 0's occupancy mirror from its seeded state, then copy
+        the table to every shard (reference copy_hash_table :908-927)."""
         with self.timer.stage("seed"):
-            # waits for the seed dispatches; primes the occupancy mirror
+            # waits for the seed dispatches
             self._used_bound[0] = float(int(self.states[0].used))
         for s in range(1, len(self.states)):
             self.tables[s] = self.tables[0]
             self._used_bound[s] = self._used_bound[0]
             self.states[s] = _copy(self.states[0])
-        if self._shadows is not None:
-            for s in range(1, len(self._shadows)):
-                self._shadows[s] = self._shadows[0].copy()
+
+    def _seed_from_tsv(self, path: str):
+        """Seed from a k-mer TSV (one k-mer per line, any count column
+        ignored; lines of another length skipped), for example a -P dump:
+        the reference's planned feature (nk.c:74-77)."""
+        cfg = self.cfg
+        with open(path, "rb") as f:
+            kmers = [km for km in (line.split(b"\t", 1)[0].strip()
+                                   for line in f) if len(km) == cfg.ksize]
+        if not kmers:
+            self.seeded_lo = np.empty(0, np.uint32)
+            return
+        arr = LUT[np.frombuffer(b"".join(kmers), np.uint8)].reshape(
+            len(kmers), cfg.ksize)
+        if (arr == 255).any():
+            raise ValueError(f"non-ACGTN kmer in seed table {path}")
+        lengths = np.full(len(kmers), cfg.ksize, np.int32)
+        if self._direct:
+            present = self._seed_marks()
+            self._mark_seeds(present, arr, lengths)
+            self.seeded_lo = self._seed_set(present)
+            return
+        for i in range(0, len(arr), cfg.batch_reads):
+            chunk = arr[i:i + cfg.batch_reads]
+            self._maybe_grow(0, chunk.shape[0])
+            self._seed_checked(chunk, lengths[i:i + cfg.batch_reads])
+        self._replicate_seeded_state()
+
+    # the direct table's seed set: a count array cannot hold a count-0
+    # code, so the codes are marked in a bool [4^k] on the device and kept
+    # on the host as seeded_lo
+
+    def _seed_marks(self) -> torch.Tensor:
+        return torch.zeros(self.cfg.direct_capacity, dtype=torch.bool,
+                           device=self.device)
+
+    def _mark_seeds(self, present: torch.Tensor, bases: np.ndarray,
+                    lengths: np.ndarray):
+        """Mark the codes of a packed batch's valid windows, every window
+        (no stride, as the JAX package seeds the direct table)."""
+        k = self.cfg.ksize
+        code = codec.window_codes(torch.from_numpy(bases).to(self.device), k,
+                                  self.cfg.canonical)
+        valid = codec.code_validity(
+            torch.from_numpy(lengths).to(self.device), code, k)
+        # an invalid window marks code 0, which is never a seed
+        present[torch.where(valid, code, 0)] = True
+
+    @staticmethod
+    def _seed_set(present: torch.Tensor) -> np.ndarray:
+        """The marked codes, ascending, as uint32 on the host."""
+        present[0] = False
+        return torch.nonzero(present).squeeze(1).cpu().numpy().astype(
+            np.uint32)
 
     def _seed_checked(self, bases, lengths):
         """One seed batch, replayed on a grown table if it dropped inserts.
@@ -526,6 +611,7 @@ class Normalizer:
         if not loaded:
             return None
         self.states, resume = loaded
+        self.seeded_lo = resume.seeded_lo
         self._rebuild_tables_from_states()
         self._reseed_used_bounds()
         for c, saved in zip(self.counters, resume.counters):
@@ -551,19 +637,17 @@ class Normalizer:
     def _rebuild_tables_from_states(self):
         """Descriptors of the loaded states' shapes (a checkpoint may hold
         a grown table)."""
-        for s, st in enumerate(self.states):
-            t = self.tables[s]
-            if tuple(st.keys.shape) != (t.rows, t.lanes):
-                self.tables[s] = type(t)(t.k, rows=int(st.keys.shape[0]),
-                                         lanes=int(st.keys.shape[1]),
-                                         device=self.device)
+        self.tables = [t.for_state(st)
+                       for t, st in zip(self.tables, self.states)]
 
     def _reseed_used_bounds(self):
-        """Prime each shard's occupancy mirror, and its live ``used``
-        counter, from the loaded table's real occupancy: growth then
-        triggers where it would have in the run that wrote the
+        """Prime each growing shard's occupancy mirror, and its live
+        ``used`` counter, from the loaded table's real occupancy: growth
+        then triggers where it would have in the run that wrote the
         checkpoint."""
         for s, st in enumerate(self.states):
+            if self.tables[s].grow_headroom is None:
+                continue
             used = self.tables[s].used_count(st)
             self.states[s] = st._replace(used=torch.tensor(
                 used, dtype=torch.int32, device=self.device))
@@ -576,7 +660,7 @@ class Normalizer:
         self._refresh_unique_counts()
         paths = [p for w in self.writers for p in w.paths()]
         ckpt.save(self.states, self.counters, file_index, records_done,
-                  paths, rr, shadows=self._shadows)
+                  paths, rr, seeded_lo=self.seeded_lo, shadows=self._shadows)
 
     # ------------------------------------------------------------------
     def _replay_snapshot(self, shard: int) -> Optional[TableState]:
@@ -609,7 +693,7 @@ class Normalizer:
 
     def _grow_and_replay(self, shard: int, table, pre_state: TableState,
                          of_post: int, dispatch):
-        """A dispatch overflowed a bucket row. Its results are discarded,
+        """A dispatch dropped inserts. Its results are discarded,
         the table grows from the state before the dispatch, and
         `dispatch()` replays the same batches on it, growing again from
         that state until the replay drops nothing or the table cannot grow.
@@ -697,7 +781,8 @@ class Normalizer:
                                 prev_processed)
         if c.due():
             # live occupancy for the 60 s verbose line
-            c.unique_kmers = self.tables[shard].used_count(self.states[shard])
+            c.unique_kmers = self.tables[shard].used_count(
+                self.states[shard], self.seeded_lo)
         c.maybe_report(self.cfg.verbose)
         return len(batch)
 
@@ -781,8 +866,10 @@ class Normalizer:
         nk.c:950-960, 976-991, which cross-checks decode(encode(kmer)) and
         exits on a mismatch): every valid window's code from the codec
         (ops/codec.py, on the host) is decoded to a string and re-encoded
-        independently; then the run's encode kernel, on the engine's device,
-        is held against the codec plus mix32_np / feistel_words_np."""
+        independently; then, on a bucket table, the run's encode kernel, on
+        the engine's device, is held against the codec plus mix32_np /
+        feistel_words_np (the direct and hashed tables encode with the
+        codec itself)."""
         cfg = self.cfg
         k = cfg.ksize
         hi, lo = codec.encode_windows_canonical(torch.from_numpy(bases), k,
@@ -807,7 +894,7 @@ class Normalizer:
                     f"FATAL: kmers do not match hash: {kmers[i]} vs "
                     f"{(int(vhi[i]) << 32) | int(vlo[i])}"
                 )
-        if cfg.stride != 1:
+        if cfg.stride != 1 or not isinstance(self.tables[0], BucketTable):
             return
         b = torch.from_numpy(bases).to(self.device)
         ln = torch.from_numpy(lengths).to(self.device)
@@ -835,7 +922,8 @@ class Normalizer:
     def _refresh_unique_counts(self):
         for s in range(self.cfg.shards):
             st = self.states[s]
-            self.counters[s].unique_kmers = self.tables[s].used_count(st)
+            self.counters[s].unique_kmers = self.tables[s].used_count(
+                st, self.seeded_lo)
             self.counters[s].overflow = int(st.overflow)
 
     # ------------------------------------------------------------------
@@ -844,7 +932,10 @@ class Normalizer:
         cfg = self.cfg
         path = os.path.join(cfg.out_dir, output_filename(
             "output_kmer_seeds", cfg.ksize, cfg.depth_per_shard, -1, "tsv"))
-        hi, lo, _ = self.tables[0].export(self.states[0])
+        if self.seeded_lo is not None:
+            hi, lo = np.zeros_like(self.seeded_lo), self.seeded_lo
+        else:
+            hi, lo, _ = self.tables[0].export(self.states[0])
         with open(path, "w") as f:
             for km in decode_codes(hi, lo, cfg.ksize):
                 f.write(f"{km}\t0\n")
@@ -852,7 +943,8 @@ class Normalizer:
     def _dump_tables(self):
         cfg = self.cfg
         for s in range(cfg.shards):
-            hi, lo, counts = self.tables[s].export(self.states[s])
+            hi, lo, counts = self.tables[s].export(self.states[s],
+                                                   self.seeded_lo)
             path = os.path.join(cfg.out_dir, output_filename(
                 "output_kmer", cfg.ksize, cfg.depth_per_shard, s, "tsv"))
             with open(path, "w") as f:

@@ -1,7 +1,7 @@
-"""The per-batch device step on the bucket path: encode -> count -> classify.
+"""The per-batch device step: encode -> count -> classify.
 
-Port of nomalise_kmers_multi_large_tpu/engine/step.py::BatchStep for the
-bucket tables, in exact and relaxed mode. k <= 15:
+Port of nomalise_kmers_multi_large_tpu/engine/step.py::BatchStep, for every
+table, in exact and relaxed mode. The bucket tables, k <= 15:
 
   bases[R, L] --K1 encode--> keys[R, W] --sort (key, read id)--> K3 scan
       --K4 upsert--> high[R], with total[R] = valid windows --> keep[B]
@@ -14,6 +14,17 @@ sort runs on (w1, w2, read id), then K3w and K5; a window is valid iff
 key, so ranks among a batch's copies of one code reach reads in arbitrary
 order. Table counts stay exact, and so does each code's multiset of
 observed values.
+
+The direct and hashed tables (the JAX step's unfused path, :226-261):
+
+  bases --ops/codec.py--> int64 codes[R, W] + validity --stride--> stream
+      --sort (ops/streamrank.py)--> count_and_update --unsort--> high[R, W]
+
+There ``mode="relaxed"`` keeps ranks sequential only within a record (read
+pair): the direct table skips the sort (relaxed_update: each occurrence
+observes the pre-batch count plus its rank in its own record); the hashed
+table still sorts to upsert, then an occurrence observes its code's pre-
+batch count plus its record-local rank.
 
 PyTorch runs eagerly, so there is nothing to compile; ``step_many`` is a
 Python loop that carries the state through G batches, with the same results
@@ -31,11 +42,20 @@ from nomalise_kmers_multi_large_torch.models.diginorm import (
     keep_mask_paired,
     keep_mask_single,
 )
+from nomalise_kmers_multi_large_torch.ops import codec
 from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
     SENTINEL, encode_keys, encode_keys_wide,
 )
-from nomalise_kmers_multi_large_torch.table.base import TableState
+from nomalise_kmers_multi_large_torch.ops.streamrank import (
+    sorted_occurrence_stream,
+)
+from nomalise_kmers_multi_large_torch.table.base import CountTable, TableState
 from nomalise_kmers_multi_large_torch.table.bucket import BucketTable
+from nomalise_kmers_multi_large_torch.table.direct import DirectTable
+
+#: elements of one chunk of _relaxed_ranks' [records, m, m] comparison
+#: (m windows a record): bounds its transient to 64 MiB of bools
+_RANK_CHUNK = 1 << 26
 
 
 class StepStats(NamedTuple):
@@ -57,9 +77,9 @@ def _on(x, device: torch.device) -> torch.Tensor:
 
 
 class BatchStep:
-    """Batch functions of one table shard (bucket tables)."""
+    """Batch functions of one table shard."""
 
-    def __init__(self, table: BucketTable, *, k: int, depth_per_shard: int,
+    def __init__(self, table: CountTable, *, k: int, depth_per_shard: int,
                  coverage: float, canonical: bool, paired: bool,
                  mode: str = "exact", pair_rule: str = "and",
                  stride: int = 1):
@@ -79,8 +99,9 @@ class BatchStep:
         self.stride = stride
 
     def _upsert(self, state: TableState, bases, lengths, seed: bool):
-        """Encode, stride-sample and count one batch. Returns (state', the
-        table's BucketBatchOut, total int32 [R] valid windows per read)."""
+        """Encode, stride-sample and count one batch on a bucket table.
+        Returns (state', the table's BucketBatchOut, total int32 [R] valid
+        windows per read)."""
         b, ln = _on(bases, self.device), _on(lengths, self.device)
         if self.table.wide:
             words = encode_keys_wide(b, ln, self.k, self.canonical)
@@ -113,9 +134,66 @@ class BatchStep:
 
         Returns (state', keep bool [B], StepStats, ReadTallies).
         """
+        rec_valid = _on(rec_valid, self.device)
+        if not isinstance(self.table, BucketTable):
+            return self._step_stream(state, bases, lengths, rec_valid)
         state, out, total = self._upsert(state, bases, lengths, seed=False)
-        return self._classify(state, out.high_per_read, total,
-                              _on(rec_valid, self.device))
+        return self._classify(state, out.high_per_read, total, rec_valid)
+
+    # ------------------------------------------------------------------
+    # the direct and hashed tables
+
+    def _encode(self, bases, lengths):
+        """int64 codes [R, W'] and their validity, stride-sampled."""
+        b, ln = _on(bases, self.device), _on(lengths, self.device)
+        code = codec.window_codes(b, self.k, self.canonical)
+        valid = codec.code_validity(ln, code, self.k)
+        if self.stride > 1:
+            code = code[:, ::self.stride].contiguous()
+            valid = valid[:, ::self.stride].contiguous()
+        return code, valid
+
+    def _relaxed_ranks(self, code, valid):
+        """Record-local ranks without a global sort: the rank of window i
+        of a record (a read, or a pair with the forward mate's windows
+        first) is the number of valid windows j <= i of the record with its
+        code. Exact for duplicates inside a record; copies in other records
+        of the batch are not ranked against it. The [records, m, m]
+        comparison runs in chunks of records (_RANK_CHUNK)."""
+        R, W = code.shape
+        rpr = 2 if self.paired else 1
+        m = rpr * W
+        c, v = code.reshape(R // rpr, m), valid.reshape(R // rpr, m)
+        tri = torch.ones((m, m), dtype=torch.bool,
+                         device=code.device).tril()
+        rank = torch.empty(c.shape, dtype=torch.int32, device=code.device)
+        step = max(1, _RANK_CHUNK // (m * m))
+        for r0 in range(0, c.shape[0], step):
+            cc, vv = c[r0:r0 + step], v[r0:r0 + step]
+            eq = (cc[:, :, None] == cc[:, None, :]) & vv[:, None, :] & tri
+            rank[r0:r0 + step] = eq.sum(2, dtype=torch.int32)
+        return rank.reshape(R, W)
+
+    def _step_stream(self, state, bases, lengths, rec_valid):
+        code, valid = self._encode(bases, lengths)
+        R, W = code.shape
+        if self.relaxed and isinstance(self.table, DirectTable):
+            state, prior = self.table.relaxed_update(
+                state, code.reshape(-1), valid.reshape(-1))
+            observed = prior.reshape(R, W) + self._relaxed_ranks(code, valid)
+            high = (observed >= self.depth) & valid
+        else:
+            stream = sorted_occurrence_stream(code.reshape(-1),
+                                              valid.reshape(-1))
+            state, observed = self.table.count_and_update(state, stream)
+            if self.relaxed:
+                local = self._relaxed_ranks(code, valid).reshape(-1)
+                observed = observed - stream.rank + local[stream.src]
+            high = stream.unsort((observed >= self.depth) & stream.valid)
+            high = high.reshape(R, W)
+        total = valid.sum(1, dtype=torch.int32)
+        high_per_read = (high & valid).sum(1, dtype=torch.int32)
+        return self._classify(state, high_per_read, total, rec_valid)
 
     def _classify(self, state, high_per_read, total_per_read, rec_valid):
         """Keep/skip decision + batch stats from per-read window tallies."""
@@ -153,5 +231,8 @@ class BatchStep:
     def seed_step(self, state: TableState, bases, lengths) -> TableState:
         """Seeding: insert k-mers with count 0. The host pre-filters records
         to the reference's len > k rule by zeroing their lengths."""
-        state, _, _ = self._upsert(state, bases, lengths, seed=True)
-        return state
+        if isinstance(self.table, BucketTable):
+            return self._upsert(state, bases, lengths, seed=True)[0]
+        code, valid = self._encode(bases, lengths)
+        stream = sorted_occurrence_stream(code.reshape(-1), valid.reshape(-1))
+        return self.table.count_and_update(state, stream, seed=True)[0]

@@ -11,10 +11,11 @@ of k <= 31 bases (<= 62 bits) fits one int64; it is returned as the JAX
 codec's (hi, lo) 32-bit words, each held in an int64 tensor (torch on the
 CPU has no uint32 arithmetic).
 
-This is not a kernel of the main path: the encode kernels (ops/
-encode_kernel.py) fuse the same rules with the mix. The ``--debug`` >= 3
-self-check holds them against this codec (engine/pipeline.py
-``_debug_roundtrip``).
+The direct and hashed tables' step takes its codes from here
+(``window_codes``, ``code_validity``: one int64 code per window). The bucket
+path does not: its encode kernels (ops/encode_kernel.py) fuse the same
+rules with the mix, and the ``--debug`` >= 3 self-check holds them against
+this codec (engine/pipeline.py ``_debug_roundtrip``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ import torch
 __all__ = [
     "encode_windows",
     "encode_windows_canonical",
+    "window_codes",
     "window_validity",
+    "code_validity",
     "decode_codes",
 ]
 
@@ -59,22 +62,34 @@ def encode_windows(bases: torch.Tensor, k: int):
     return _split(_codes(bases, k, rc=False))
 
 
-def encode_windows_canonical(bases: torch.Tensor, k: int, canonical: bool):
-    """encode_windows, optionally canonicalized to min(code, revcomp code)."""
+def window_codes(bases: torch.Tensor, k: int, canonical: bool):
+    """int64 [R, L - k + 1] code of every k-window, optionally canonicalized
+    to min(code, revcomp code)."""
     code = _codes(bases, k, rc=False)
     if canonical:
         code = torch.minimum(code, _codes(bases, k, rc=True))
-    return _split(code)
+    return code
+
+
+def encode_windows_canonical(bases: torch.Tensor, k: int, canonical: bool):
+    """encode_windows, optionally canonicalized to min(code, revcomp code)."""
+    return _split(window_codes(bases, k, canonical))
+
+
+def code_validity(lengths: torch.Tensor, code: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """bool [R, W]: the windows the reference counts. Window i of a read of
+    length len is real iff i <= len - k (:1464), and the all-A code 0 is
+    dropped (:1483-1484); a read of length 0 has none."""
+    win = torch.arange(code.shape[-1], device=code.device)
+    in_read = win <= lengths.to(torch.int64)[..., None] - k
+    return in_read & (code != 0)
 
 
 def window_validity(lengths: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                     k: int) -> torch.Tensor:
-    """bool [R, W]: the windows the reference counts. Window i of a read of
-    length len is real iff i <= len - k (:1464), and the all-A code 0 is
-    dropped (:1483-1484); a read of length 0 has none."""
-    win = torch.arange(hi.shape[-1], device=hi.device)
-    in_read = win <= lengths.to(torch.int64)[..., None] - k
-    return in_read & ((hi | lo) != 0)
+    """code_validity of a code given as its (hi, lo) words."""
+    return code_validity(lengths, hi | lo, k)
 
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)

@@ -25,7 +25,7 @@ from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
     BucketBatchOut, bucket_batch, bucket_batch_wide,
 )
 from nomalise_kmers_multi_large_torch.ops.mix import unfeistel_np, unmix32_np
-from nomalise_kmers_multi_large_torch.table.base import TableState
+from nomalise_kmers_multi_large_torch.table.base import CountTable, TableState
 
 #: default slots per bucket row
 DEFAULT_LANES = 64
@@ -91,7 +91,7 @@ def _split_rows(keys: torch.Tensor, counts: torch.Tensor, fb: int,
     return out[0], out[1], out[2] if keys2 is not None else None
 
 
-class BucketTable:
+class BucketTable(CountTable):
     #: True on the k > 15 table: two sort words, two fingerprint planes
     wide = False
 
@@ -177,11 +177,17 @@ class BucketTable:
         return new, TableState(counts=cnt2x, keys=keys2x, used=state.used,
                                overflow=state.overflow)
 
-    def used_count(self, state: TableState) -> int:
+    def for_state(self, state: TableState) -> "BucketTable":
+        rows, lanes = (int(x) for x in state.keys.shape)
+        if (rows, lanes) == (self.rows, self.lanes):
+            return self
+        return type(self)(self.k, rows=rows, lanes=lanes, device=self.device)
+
+    def used_count(self, state: TableState, seeded_lo=None) -> int:
         """Occupied slots (reference ht->used); seeds are real entries."""
         return int((state.keys != 0).sum())
 
-    def export(self, state: TableState):
+    def export(self, state: TableState, seeded_lo=None):
         """(hi, lo, count) of occupied slots in ascending code order."""
         fp = state.keys.cpu().numpy()
         cnt = state.counts.cpu().numpy()
@@ -299,7 +305,7 @@ class BucketTableWide(BucketTable):
         return new, TableState(counts=cnt2x, keys=keys2x, used=state.used,
                                overflow=state.overflow, keys2=b2x)
 
-    def export(self, state: TableState):
+    def export(self, state: TableState, seeded_lo=None):
         """(hi, lo, count) of occupied slots in ascending code order."""
         fp = state.keys.cpu().numpy()
         cnt = state.counts.cpu().numpy()
@@ -315,21 +321,3 @@ class BucketTableWide(BucketTable):
         return ((codes >> np.uint64(32)).astype(np.uint32),
                 (codes & np.uint64(0xFFFFFFFF)).astype(np.uint32), vals)
 
-
-def state_from_numpy(st, device="cpu") -> TableState:
-    """Port state from a table state of numpy arrays (for example a JAX
-    TableState passed through np.asarray field by field); a None plane
-    stays None."""
-    def t(x):
-        if x is None:
-            return None
-        return torch.from_numpy(np.array(x, dtype=np.int32)).to(device)
-
-    return TableState(*(t(x) for x in st))
-
-
-def state_to_numpy(state: TableState) -> TableState:
-    """The same state with every field as a numpy array on the host; a
-    None plane stays None."""
-    return TableState(*(None if x is None else x.cpu().numpy()
-                        for x in state))

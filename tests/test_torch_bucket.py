@@ -13,7 +13,7 @@ import torch
 
 from nomalise_kmers_multi_large_tpu.ops.encode_kernel import encode_keys
 from nomalise_kmers_multi_large_tpu.table import BucketTable as RefTable
-from nomalise_kmers_multi_large_torch.table.bucket import (
+from nomalise_kmers_multi_large_torch.table import (
     BucketTable, state_from_numpy, state_to_numpy,
 )
 

@@ -8,7 +8,7 @@ import pytest
 
 from nomalise_kmers_multi_large_tpu.ops.mix import mix32_np
 from nomalise_kmers_multi_large_tpu.table import BucketTable as RefTable
-from nomalise_kmers_multi_large_torch.table.bucket import (
+from nomalise_kmers_multi_large_torch.table import (
     BucketTable, state_from_numpy, state_to_numpy,
 )
 from test_torch_bucket import (

@@ -25,7 +25,7 @@ from nomalise_kmers_multi_large_torch.ops.mix import feistel_words_np
 from nomalise_kmers_multi_large_torch.ops.segscan import (
     _TILE, rank_cand_scan, rank_cand_scan_plain,
 )
-from nomalise_kmers_multi_large_torch.table.bucket import (
+from nomalise_kmers_multi_large_torch.table import (
     BucketTable, BucketTableWide, state_to_numpy,
 )
 
@@ -628,3 +628,173 @@ def test_debug3_roundtrip_on_the_card(dev, tmp_path, k):
         lines[device] = without_clock_lines(buf.getvalue())
     assert lines["cuda"] == lines["cpu"]
     assert any(ln.startswith("DEBUG: New Kmer hash") for ln in lines["cuda"])
+
+
+# ----------------------------------------------------------------------
+# the fallback tables: the hashed find-or-insert kernel, and the direct and
+# hashed steps on the card
+
+def _hashed_codes(rng, n, k=25):
+    """n distinct nonzero k-mer codes (int64), ascending as a run head
+    stream is."""
+    codes = np.unique(rng.integers(1, 1 << (2 * k), size=2 * n,
+                                   dtype=np.int64))
+    return np.sort(rng.permutation(codes)[:n])
+
+
+def _colliding_codes(rng, n, capacity, k=25):
+    """n distinct codes whose slot hash sends them all to slot 0 of a table
+    of `capacity` slots."""
+    from nomalise_kmers_multi_large_torch.ops.hashed_kernel import slot_hash
+
+    got = []
+    while len(got) < n:
+        c = torch.from_numpy(rng.integers(1, 1 << (2 * k), size=1 << 20,
+                                          dtype=np.int64))
+        got += c[(slot_hash(c) & (capacity - 1)) == 0].tolist()
+    return np.unique(np.array(got[:n], np.int64))
+
+
+def _check_hashed(dev, keys0, counts0, codes, mult=None, seed=False):
+    """The kernel and the plain version from the same planes: equal sets of
+    (code, count), stats (new, unresolved) and per-position priors; every
+    resolved slot of the kernel holds its code."""
+    from nomalise_kmers_multi_large_torch.ops.hashed_kernel import (
+        hashed_insert, hashed_insert_plain,
+    )
+
+    planes = {}
+    outs = {}
+    for name, fn in (("kernel", hashed_insert),
+                     ("plain", hashed_insert_plain)):
+        keys, counts = keys0.clone().to(dev), counts0.clone().to(dev)
+        c = torch.from_numpy(codes).to(dev)
+        m = None if seed else torch.from_numpy(mult).to(dev)
+        outs[name] = fn(keys, c, m, None if seed else counts)
+        planes[name] = (keys, counts)
+    torch.cuda.synchronize()
+    (kk, kc), (pk, pc) = planes["kernel"], planes["plain"]
+    ko, po = outs["kernel"], outs["plain"]
+
+    def table(keys, counts):
+        occ = keys != 0
+        code, order = torch.sort(keys[occ])
+        return code.cpu(), counts[occ][order].cpu()
+
+    for a, b in zip(table(kk, kc), table(pk, pc)):
+        assert torch.equal(a, b)
+    assert torch.equal(ko.stats[:2].cpu(), po.stats[:2].cpu())
+    assert torch.equal(ko.prior.cpu(), po.prior.cpu())
+    hit = ko.slot >= 0
+    c = torch.from_numpy(codes).to(dev)
+    assert torch.equal(kk[ko.slot[hit].long()], c[hit])
+    assert torch.equal(hit, po.slot >= 0)
+    return ko.stats.cpu()
+
+
+@pytest.mark.parametrize("case", ["batches", "colliding", "full"])
+def test_hashed_kernel_matches_plain(dev, case):
+    rng = np.random.default_rng(7)
+    cap = 1 << 12 if case != "batches" else 1 << 16
+    keys = torch.zeros(cap, dtype=torch.int64)
+    counts = torch.zeros(cap, dtype=torch.int32)
+    if case == "batches":
+        # a seed batch, then a count batch that meets half of it again
+        first = _hashed_codes(rng, 20000)
+        _check_hashed(dev, keys, counts, first, seed=True)
+        from nomalise_kmers_multi_large_torch.ops.hashed_kernel import (
+            hashed_insert_plain,
+        )
+        hashed_insert_plain(keys, torch.from_numpy(first))
+        codes = np.unique(np.concatenate([first[::2],
+                                          _hashed_codes(rng, 10000)]))
+    elif case == "colliding":
+        # 24 codes on one home slot (the triangular probe visits 64
+        # distinct slots) among random ones, at ~10 % load: all resolve
+        codes = np.unique(np.concatenate([
+            _colliding_codes(rng, 24, cap), _hashed_codes(rng, 400)]))
+    else:
+        # every slot taken: old codes match, new codes are unresolved
+        from nomalise_kmers_multi_large_torch.ops.hashed_kernel import (
+            hashed_insert_plain,
+        )
+        old = _hashed_codes(rng, 3 * cap)
+        out = hashed_insert_plain(keys, torch.from_numpy(old))
+        filled = keys[keys != 0].numpy()
+        assert filled.size < cap or int(out.stats[1]) > 0
+        while (keys == 0).any():  # fill the last holes directly
+            keys[keys == 0] = torch.from_numpy(
+                _hashed_codes(rng, int((keys == 0).sum())) + (1 << 50))
+        counts[:] = torch.from_numpy(rng.integers(1, 9, cap, dtype=np.int32))
+        codes = np.unique(np.concatenate([
+            rng.choice(filled, 500, replace=False),
+            _hashed_codes(rng, 500) + (1 << 51)]))
+    codes = np.where(rng.random(codes.size) < 0.2, 0, codes)  # non-heads
+    mult = rng.integers(1, 5, codes.size, dtype=np.int32)
+    mult[codes == 0] = 0
+    stats = _check_hashed(dev, keys, counts, codes, mult)
+    if case == "full":
+        assert int(stats[0]) == 0 and int(stats[1]) > 0
+    else:
+        assert int(stats[0]) > 0 and int(stats[1]) == 0
+
+
+def test_hashed_kernel_launch_failure_raises(dev):
+    """The C entry refuses a capacity that is not a power of two: the
+    wrapper's launch raises with the CUDA error and counts no launch."""
+    from nomalise_kmers_multi_large_torch import backend
+    from nomalise_kmers_multi_large_torch.ops.hashed_kernel import _ARGTYPES
+
+    keys = torch.zeros(3, dtype=torch.int64, device=dev)
+    codes = torch.ones(4, dtype=torch.int64, device=dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    fn = backend.function("hashed_insert", "nkm_hashed_insert", _ARGTYPES)
+    before = backend.launches()["hashed_insert"]
+    with pytest.raises(RuntimeError, match="hashed_insert: CUDA error"):
+        backend.launch("hashed_insert", fn, codes.data_ptr(), 4,
+                       keys.data_ptr(), 3, None, None, None, None,
+                       stats.data_ptr(), dev.index or 0,
+                       backend.stream_of(keys))
+    assert backend.launches()["hashed_insert"] == before
+
+
+@pytest.mark.parametrize("kind,k", [("direct", 13), ("hashed", 25),
+                                    ("hashed", 21)])
+@pytest.mark.parametrize("mode", ["exact", "relaxed"])
+def test_fallback_step_on_the_card_equals_cpu(dev, kind, k, mode):
+    """A seed batch and three paired batches (one after a growth on the
+    hashed table) through BatchStep on cuda and on the cpu: keep masks,
+    stats, tallies, used, overflow and the exported table are equal."""
+    from nomalise_kmers_multi_large_torch.engine.step import BatchStep
+    from nomalise_kmers_multi_large_torch.table import (
+        DirectTable, HashedTable,
+    )
+
+    rng = np.random.default_rng(k)
+    batches = [_reads(rng, 1024, 150) for _ in range(4)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t = DirectTable(k, device=device) if kind == "direct" else \
+            HashedTable(k, 1 << 18, device=device)
+        st = t.init()
+        step = BatchStep(t, k=k, depth_per_shard=3, coverage=0.9,
+                         canonical=True, paired=True, mode=mode)
+        st = step.seed_step(st, *batches[0])
+        got = []
+        for i, (bases, lengths) in enumerate(batches[1:]):
+            if i == 2 and t.can_grow:
+                t, st = t.grown(st)
+                step = BatchStep(t, k=k, depth_per_shard=3, coverage=0.9,
+                                 canonical=True, paired=True, mode=mode)
+            rv = lengths.reshape(-1, 2).min(1) > 0
+            st, keep, stats, tallies = step.step(st, bases, lengths, rv)
+            got.append([x.cpu() for x in (keep, *stats, *tallies)])
+        runs[device] = (got, t.export(st), int(st.used), int(st.overflow))
+    (g1, e1, u1, o1), (g2, e2, u2, o2) = runs["cuda"], runs["cpu"]
+    for a, b in zip(g1, g2):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    for x, y in zip(e1, e2):
+        np.testing.assert_array_equal(x, y)
+    assert (u1, o1) == (u2, o2) and o1 == 0
+    assert 0 < int(g1[-1][2]) < 1024   # printed

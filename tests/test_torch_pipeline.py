@@ -95,29 +95,31 @@ def test_growth_between_dispatch_and_overflowing_retire(tmp_path, capsys):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("changes,ok", [
-    (dict(), True),
-    (dict(ksize=13, depth=200000, shards=2), False),   # depth/shard > 65535
-    (dict(ksize=21, table="hashed"), False),            # wide, hashed
-    (dict(table="direct"), False),
-    (dict(mode="relaxed", table="direct"), False),      # direct, relaxed
-    (dict(checkpoint_every=5, n_devices=2), False),
-    (dict(debug=5), False),                             # tiers 0..4 run
-    (dict(spectrum=True), False),
-    (dict(seed_table="x.tsv"), False),
-    (dict(n_devices=2), False),
-    (dict(sharding="global"), False),
-    (dict(profile_dir="trace"), False),
-    (dict(mode="relaxed"), True),
-    (dict(ksize=21, mode="relaxed"), True),
-    (dict(checkpoint_every=5, resume=True), True),
-    (dict(debug=2), True),
-    (dict(debug=4, ksize=25), True),
+@pytest.mark.parametrize("changes,table", [
+    (dict(), "bucket"),
+    (dict(ksize=13, depth=200000, shards=2), "direct"),  # depth/shard > 65535
+    (dict(ksize=21, table="hashed"), "hashed"),         # wide, hashed
+    (dict(table="direct"), "direct"),
+    (dict(mode="relaxed", table="direct"), "direct"),   # direct, relaxed
+    (dict(checkpoint_every=5, n_devices=2), None),
+    (dict(debug=5), None),                              # tiers 0..4 run
+    (dict(spectrum=True), "bucket"),
+    (dict(seed_table="x.tsv"), "bucket"),
+    (dict(n_devices=2), None),
+    (dict(sharding="global"), None),
+    (dict(profile_dir="trace"), None),
+    (dict(mode="relaxed"), "bucket"),
+    (dict(ksize=21, mode="relaxed"), "bucket"),
+    (dict(checkpoint_every=5, resume=True), "bucket"),
+    (dict(debug=2), "bucket"),
+    (dict(debug=4, ksize=25), "bucket"),
 ])
-def test_table_rule_and_unported_options(changes, ok):
+def test_table_rule_and_unported_options(changes, table):
+    """The table each config resolves to, or None where port_config still
+    rejects an option."""
     cfg = Config(forward_files=("a.fa",), single=True, **changes)
-    if ok:
-        assert port_config(cfg).table == "bucket"
+    if table:
+        assert port_config(cfg).table == table
     else:
         with pytest.raises(ConfigError):
             port_config(cfg)
@@ -126,7 +128,12 @@ def test_table_rule_and_unported_options(changes, ok):
 def test_port_imports_no_jax():
     code = ("import sys, nomalise_kmers_multi_large_torch, "
             "nomalise_kmers_multi_large_torch.cli, "
-            "nomalise_kmers_multi_large_torch.engine.pipeline; "
+            "nomalise_kmers_multi_large_torch.engine.pipeline, "
+            "nomalise_kmers_multi_large_torch.table.direct, "
+            "nomalise_kmers_multi_large_torch.table.hashed, "
+            "nomalise_kmers_multi_large_torch.ops.streamrank, "
+            "nomalise_kmers_multi_large_torch.ops.hashed_kernel, "
+            "nomalise_kmers_multi_large_torch.models.spectrum; "
             "sys.exit(1 if any(m == 'jax' or m.startswith("
             "('jax.', 'nomalise_kmers_multi_large_tpu')) "
             "for m in sys.modules) else 0)")

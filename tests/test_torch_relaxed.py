@@ -23,7 +23,7 @@ from nomalise_kmers_multi_large_torch.config import Config
 from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 from nomalise_kmers_multi_large_torch.engine.step import BatchStep
 from nomalise_kmers_multi_large_torch.ops import bucket_kernel
-from nomalise_kmers_multi_large_torch.table.bucket import (
+from nomalise_kmers_multi_large_torch.table import (
     BucketTable, BucketTableWide, state_to_numpy,
 )
 

@@ -13,7 +13,7 @@ from nomalise_kmers_multi_large_tpu.models import diginorm as ref_dn
 from nomalise_kmers_multi_large_tpu.table import BucketTable as RefTable
 from nomalise_kmers_multi_large_torch.engine.step import BatchStep
 from nomalise_kmers_multi_large_torch.models import diginorm as port_dn
-from nomalise_kmers_multi_large_torch.table.bucket import (
+from nomalise_kmers_multi_large_torch.table import (
     BucketTable, state_to_numpy,
 )
 from test_engine import COVERAGE, DEPTH, K, _make_reads, _pack

@@ -17,7 +17,7 @@ from nomalise_kmers_multi_large_torch.engine.pipeline import _copy
 from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
     encode_keys_wide,
 )
-from nomalise_kmers_multi_large_torch.table.bucket import (
+from nomalise_kmers_multi_large_torch.table import (
     BucketTableWide, state_from_numpy, state_to_numpy,
 )
 

@@ -7,7 +7,7 @@ import jax
 import numpy as np
 import pytest
 
-from nomalise_kmers_multi_large_torch.table.bucket import (
+from nomalise_kmers_multi_large_torch.table import (
     state_from_numpy, state_to_numpy,
 )
 from test_torch_wide_bucket import (
