@@ -51,7 +51,11 @@ Phases, each of which fails the run on error:
    on the timed batch. Past the old 2^21-row ceiling of the wide table, K3w
    and K5 are checked for equality (not timed) at row_shift 10 (2^22 rows)
    and 8 (2^24 rows, 12 GiB of planes) on one k = 25 batch into a table
-   seeded by three.
+   seeded by three. K4 and K5 are also checked (not timed) on a Mode B
+   row shard: the last of 4 row shards of a 2^21-row table (2^19 rows, the
+   whole table's fingerprint width), fed the shard's routed part of four
+   seed batches and a count batch at k = 15 and 25, with 1,000 sentinels
+   after it whose rows lie past the shard's.
 3. Golden parity: the port's CLI on tests/data/{a1,b1}.fasta -t fa -o fa
    -d 4 --device cuda is byte-identical to tests/golden/fasta_in_paired_k15
    at -k 15 and to tests/golden/fasta_in_paired_k25_jax (made by the JAX
@@ -111,12 +115,29 @@ Phases, each of which fails the run on error:
    replay snapshots. The first 20,000 pairs of each also run on the cpu
    (bytes equal), and -d 70000 through --table auto must resolve to
    direct (k = 15) and hashed (k = 25), equal on cuda and cpu.
+12. Several devices and processes (the shards share the one card, so this
+   checks correctness and the exchange's cost, not NVLink or scaling):
+   prints torch.cuda.device_count() and the devices of --devices 0. Mode B
+   (--sharding global) on 4 shards of the card, phase 4's pairs at -k 15
+   and -k 25: outputs byte-identical to phases 4/5, totals equal, overflow
+   0, the global table grown, every row shard on the card, K1-K5 launched,
+   its wall time beside phase 4/5's; on a machine with >= 4 cards, again
+   on 4 distinct cards. Mode B under full skew (20,000 copies of one pair,
+   every window of a batch in a few row shards): byte-identical to the
+   one-device run. Mode A on 4 shards, phase 4's pairs at -k 15: four
+   thread files of each mate named norm25, totals, every state on the
+   card; then the first 20,000 pairs at -k 15 and -k 25 on 4 cuda shards
+   and 4 cpu devices: every file byte-identical. --profile on the k = 15
+   golden: one trace file whose device kernel events name K1, K3 and K4.
+   Two host processes (gloo, torchrun's variables) on the card, each on
+   one of two 20,000-pair file pairs: the aggregated totals equal the sums
+   of single-process runs.
 
 Every phase prints "phase N: start" first and "phase N: done in S s" at its
 end; a phase that fails prints its name and the traceback on standard
 output, and the script exits non-zero.
-Phases 7 to 10 each zero the kernel launch counts before their runs and
-fail if a kernel of their path was never launched.
+Phases 7 to 10 and 12 each zero the kernel launch counts before their runs
+and fail if a kernel of their path was never launched.
 
 Standard output ends with one JSON line of per-kernel results, then
 {"ok": true, "device": {...}} as the last line. Without CUDA, or outside a
@@ -141,6 +162,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -175,6 +197,9 @@ HASH_SLOTS = 1 << 27      # phase 11: the hashed kernel's table
 HASH_LOAD = 0.45          # phase 11: its fuller fill
 AUTO_DEPTH = 70000        # phase 11: above the bucket table's 65535
 HASHED_KERNEL_FLAG = "--hashed-kernel"  # phase 11's kernel check, apart
+MESH_SHARDS = 4           # phase 12: shards of Modes A and B (and phase 2's
+                          # row-shard check)
+SKEW_PAIRS = 20_000       # phase 12: copies of one pair
 
 REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
     "encode_keys": "nomalise_kmers_multi_large_tpu/ops/encode_kernel.py:289",
@@ -884,7 +909,7 @@ def phase_golden(k: int, case: str, table: str = "auto"):
     rc = cli.main(["-f", os.path.join(data, "a1.fasta"),
                    "-r", os.path.join(data, "b1.fasta"), "-t", "fa", "-o",
                    "fa", "-k", str(k), "-d", "4", "--table", table,
-                   "--device", "cuda", "--out-dir", out])
+                   "--device", "cuda", "--devices", "1", "--out-dir", out])
     if rc != 0:
         raise AssertionError(f"golden CLI run exited {rc}")
     gold = os.path.join(ROOT, "tests", "golden", case)
@@ -916,14 +941,19 @@ def write_inputs(rng):
     return (f1, f2), tuple(sub)
 
 
-def run_engine(k: int, device, files, sub: str, extra=(), run=True):
+def run_engine(k: int, device, files, sub: str, extra=(), run=True,
+               devices=None):
     """Normalizer.run() at -k `k` with the reference defaults on `files`
     (forward, reverse; either may be a list of files) and the options
     `extra`, writing under WORK; returns (normalizer, report, out dir, the
     table's first descriptor). With run=False the normalizer is returned
-    unrun (report None)."""
+    unrun (report None). With `devices` (a list), the MeshNormalizer on
+    them instead (phase 12)."""
     from nomalise_kmers_multi_large_torch.cli import config_from_args
     from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
+    from nomalise_kmers_multi_large_torch.parallel.engine import (
+        MeshNormalizer,
+    )
 
     fwd, rev = ([f] if isinstance(f, str) else list(f) for f in files)
     out = os.path.join(WORK, f"k{k}_{sub}")
@@ -931,7 +961,8 @@ def run_engine(k: int, device, files, sub: str, extra=(), run=True):
                                "-d", "100", "-g", "0.9", "-p", "1",
                                "--batch-reads", "8192", "-e",
                                "--out-dir", out, *extra])
-    norm = Normalizer(cfg, device)
+    norm = (Normalizer(cfg, device) if devices is None
+            else MeshNormalizer(cfg, devices))
     t0 = norm.tables[0]
     rep = norm.run() if run else None
     return norm, rep, out, t0
@@ -1020,7 +1051,8 @@ def phase_main(dev, k: int, files, check_files, label: str):
                              f"{rep.total_printed} printed pairs")
     # phase 11 holds the fallback tables to these outputs and this spectrum
     exact = dict(state=st, rows=t.rows, kept=kept_ids(out, k),
-                 digests=out_digests(out), spectrum=spectrum_of(norm))
+                 digests=out_digests(out), spectrum=spectrum_of(norm),
+                 wall=wall)
 
     # the same engine on the CPU plain path, on the first pairs
     outs = [run_engine(k, d, check_files, f"check_{d}")[2]
@@ -1534,6 +1566,300 @@ def phase_fallback(dev, files, check_files, ref: dict) -> dict:
     return launches
 
 
+def phase_kernels_row_shard(rng, dev):
+    """K4 and K5 on the last row shard of a TABLE_ROWS-row table cut
+    MESH_SHARDS ways (TABLE_ROWS / 4 rows with the whole table's
+    fingerprint width), as Mode B runs them: the shard's part of four seed
+    batches, then of one count batch (BATCH_READS reads x 150 bp, k = 15
+    and 25), routed, rebased and sorted by parallel/modes.py, with 1,000
+    sentinels after it (whose rows lie past the shard's). Each call equal
+    to the plain version on a copy of the planes; no timing."""
+    from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
+        MAX_READS, bucket_upsert, bucket_upsert_plain, bucket_upsert_wide,
+        bucket_upsert_wide_plain, sort_stream, sort_stream_wide,
+    )
+    from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
+        as_int32, encode_keys, encode_keys_wide,
+    )
+    from nomalise_kmers_multi_large_torch.ops.segscan import rank_cand_scan
+    from nomalise_kmers_multi_large_torch.parallel.modes import (
+        RowShardedBucketTable, owner_edges_narrow, owner_edges_wide,
+    )
+    from nomalise_kmers_multi_large_torch.table.bucket import (
+        BucketTable, BucketTableWide,
+    )
+
+    reads, j = BATCH_READS, MESH_SHARDS - 1
+    lengths = torch.full((reads,), 150, dtype=torch.int32, device=dev)
+    batches = read_batches(rng, dev, 5)
+    sent = torch.full((1000,), -1, dtype=torch.int32, device=dev)
+    for k, wide in ((15, False), (25, True)):
+        whole = (BucketTableWide if wide else BucketTable)(
+            k, rows=TABLE_ROWS, device=dev)
+        t = RowShardedBucketTable(whole, [dev] * MESH_SHARDS)
+        rid = torch.arange(reads, device=dev).repeat_interleave(150 - k + 1)
+        pad_rid = torch.zeros(1000, dtype=torch.int64, device=dev)
+
+        def shard_stream(bases):
+            base = j * t.span
+            if wide:
+                w1, w2 = encode_keys_wide(bases, lengths, k, False)
+                (sk1, sk2, srid), e = owner_edges_wide(
+                    w1.reshape(-1), w2.reshape(-1), rid, MESH_SHARDS, t.span)
+                lo, hi = e[j:j + 2].tolist()
+                s1 = as_int32((sk1[lo:hi].to(torch.int64) & 0xFFFFFFFF)
+                              - base)
+                sk1, sk2, srid = sort_stream_wide(
+                    torch.cat([s1, sent]), torch.cat([sk2[lo:hi], sent]), 1,
+                    rid_flat=torch.cat([srid[lo:hi].to(torch.int64),
+                                        pad_rid]))
+                return (sk1, sk2, *rank_cand_scan(
+                    sk1, srid, fp_bits=0, n_reads=reads, skey2=sk2,
+                    row_shift=t.shift))
+            key = encode_keys(bases, lengths, k, False)
+            packed, e = owner_edges_narrow(key.reshape(-1), rid, MESH_SHARDS,
+                                           t.span)
+            lo, hi = e[j:j + 2].tolist()
+            seg = packed[lo:hi]
+            skey, srid = sort_stream(
+                torch.cat([as_int32((seg >> 14) - base), sent]),
+                torch.cat([seg & (MAX_READS - 1), pad_rid]))
+            return (skey, *rank_cand_scan(skey, srid, fp_bits=t.shift,
+                                          n_reads=reads))
+
+        st = t.init()
+        planes = [st.keys[j]] + ([st.keys2[j]] if wide else []) + \
+            [st.counts[j]]
+        twins = [x.clone() for x in planes]
+        kernel, plain = ((bucket_upsert_wide, bucket_upsert_wide_plain)
+                         if wide else (bucket_upsert, bucket_upsert_plain))
+        kw = dict(depth=100, n_reads=reads,
+                  **({"row_shift": t.shift} if wide else
+                     {"fp_bits": t.shift}))
+        errs, n_elems = [], 0
+        for i, bases in enumerate(batches):
+            stream = shard_stream(bases)
+            n_elems = stream[0].numel() - 1000
+            got = kernel(*planes, *stream, seed=i < 4, **kw)
+            want = plain(*twins, *stream, seed=i < 4, **kw)
+            errs.append(max_abs_err([*zip(planes, twins), *zip(got, want)]))
+        name = "bucket_batch_wide" if wide else "bucket_batch"
+        print(f"phase 2 (row shards): {name} k={k} on row shard {j} of "
+              f"{MESH_SHARDS} ({t.shard_rows:,} rows of {t.rows:,}, shift "
+              f"{t.shift}): {int((planes[0] != 0).sum()):,} slots filled; "
+              f"the count batch's {n_elems:,} routed windows + 1,000 "
+              f"sentinels: inserted {int(got[1][1]):,}, dropped "
+              f"{int(got[1][0]):,}, high {int(got[0].sum()):,}; max_abs_err "
+              f"per call {errs}")
+        if any(errs) or int(got[1][1]) == 0:
+            raise AssertionError(f"{name} on a row shard disagrees with its "
+                                 f"plain version: {errs}")
+        del st, planes, twins
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.empty_cache()
+
+
+def _on_card(state) -> bool:
+    """Every tensor of a shard state (a plane may be a tuple of row shards)
+    on a CUDA device."""
+    return all(p.device.type == "cuda" for x in state if x is not None
+               for p in (x if isinstance(x, tuple) else (x,)))
+
+
+def phase_mesh(dev, files, check_files, ref: dict, want: dict, walls: dict):
+    """Modes A and B on MESH_SHARDS shards of the one card, --profile and
+    two host processes (gloo) on it. `ref`: k -> (output digests, spectrum)
+    of phases 4/5; `want`: their totals; `walls`: their wall times."""
+    from nomalise_kmers_multi_large_torch import backend, cli
+    from nomalise_kmers_multi_large_torch.parallel.mesh import data_devices
+
+    shards = [dev] * MESH_SHARDS
+    cards = data_devices(0, "cuda")
+    print(f"phase 12: torch.cuda.device_count() {torch.cuda.device_count()}; "
+          f"--devices 0 takes {[str(d) for d in cards]}; Modes A and B on "
+          f"{MESH_SHARDS} shards of {dev}, one card: this checks the modes "
+          "and the exchange's cost on one card, not NVLink or scaling")
+
+    def mode_b(k, devices, files, sub):
+        backend.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        norm, rep, out, first = run_engine(k, dev, files, sub,
+                                           ["--sharding", "global"],
+                                           devices=devices)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = require_launches(f"phase 12 (Mode B, {sub})", k)
+        t, st = norm.tables[0], norm.states[0]
+        digests, on_card = out_digests(out), _on_card(st)
+        shutil.rmtree(out)
+        return rep, wall, launches, t, st, first, digests, on_card
+
+    for k in (15, 25):
+        runs = [("one card", shards)]
+        if len(cards) >= MESH_SHARDS:
+            runs.append(("distinct cards", cards[:MESH_SHARDS]))
+        for label, devices in runs:
+            rep, wall, launches, t, st, first, digests, on_card = mode_b(
+                k, devices, files, "mode_b")
+            same = digests == ref[k][0]
+            print(f"phase 12: Mode B -k {k} on {MESH_SHARDS} shards "
+                  f"({label}): {rep.total_processed:,} pairs in {wall:.2f} s "
+                  f"(phase {4 if k == 15 else 5}, one device: "
+                  f"{walls[k]:.2f} s), seed pass included; printed "
+                  f"{rep.total_printed:,}; distinct k-mers "
+                  f"{rep.max_total_kmers:,}; the global table grew from "
+                  f"{first.rows:,} to {t.rows:,} rows, {MESH_SHARDS} row "
+                  f"shards of {t.shard_rows:,}; overflow {int(st.overflow)};"
+                  f" outputs equal to phase {4 if k == 15 else 5}'s: {same};"
+                  f" totals equal: {totals(rep) == want[k]}; states on the "
+                  f"card: {on_card}; launches {launches}")
+            if not same or totals(rep) != want[k] or int(st.overflow) \
+                    or t.rows <= first.rows or not on_card:
+                raise AssertionError(f"phase 12: Mode B -k {k} ({label}) "
+                                     "differs from the one-device run")
+            del st
+            torch.cuda.empty_cache()
+
+    # full skew: every window of every batch one pair's
+    skew = [os.path.join(WORK, f"skew{m}.fq") for m in (1, 2)]
+    for src, dst in zip(files, skew):
+        with open(src, "rb") as a, open(dst, "wb") as b:
+            b.write(a.read(315) * SKEW_PAIRS)
+    for k in (15, 25):
+        _, one, o1, _ = run_engine(k, dev, skew, "skew_one")
+        rep, wall, _, _, st, _, digests, _ = mode_b(k, shards, skew,
+                                                    "skew_b")
+        same = digests == out_digests(o1) and totals(rep) == totals(one)
+        shutil.rmtree(o1)
+        print(f"phase 12: Mode B -k {k} under full skew ({SKEW_PAIRS:,} "
+              f"copies of one pair): totals {totals(rep)}, overflow "
+              f"{int(st.overflow)}, equal to the one-device run: {same} "
+              f"({wall:.2f} s)")
+        if not same or int(st.overflow):
+            raise AssertionError(f"phase 12: Mode B -k {k} under skew")
+
+    # Mode A
+    backend.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    norm, rep, out, _ = run_engine(15, dev, files, "mode_a", devices=shards)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = require_launches("phase 12 (Mode A)", 15)
+    names = sorted(os.listdir(out))
+    want_names = sorted(f"{b}.k15_norm{100 // MESH_SHARDS}_thread{s}.fastq"
+                        for b in ("output_forward", "output_reverse")
+                        for s in range(MESH_SHARDS))
+    on_card = all(_on_card(st) for st in norm.states)
+    print(f"phase 12: Mode A -k 15 on {MESH_SHARDS} shards: "
+          f"{rep.total_processed:,} pairs in {wall:.2f} s (phase 4: "
+          f"{walls[15]:.2f} s); printed {rep.total_printed:,}; distinct "
+          f"k-mers in the fullest shard {rep.max_total_kmers:,}; files "
+          f"{names}; states on the card: {on_card}; launches {launches}")
+    shutil.rmtree(out)
+    if names != want_names or not on_card or rep.total_processed != PAIRS \
+            or rep.total_printed + rep.total_skipped != PAIRS:
+        raise AssertionError("phase 12: Mode A on 1M pairs")
+    del norm
+    torch.cuda.empty_cache()
+    for k in (15, 25):
+        outs = {}
+        for d in ("cuda", "cpu"):
+            devs = [torch.device(d)] * MESH_SHARDS
+            o = run_engine(k, d, check_files, f"mode_a_{d}", devices=devs)[2]
+            outs[d] = out_digests(o)
+            shutil.rmtree(o)
+        same = outs["cuda"] == outs["cpu"] and len(outs["cuda"]) == \
+            2 * MESH_SHARDS
+        print(f"phase 12: Mode A -k {k}, first {CHECK_PAIRS:,} pairs: "
+              f"{len(outs['cuda'])} files byte-identical on cuda and cpu: "
+              f"{same}")
+        if not same:
+            raise AssertionError(f"phase 12: Mode A -k {k}: cuda and cpu")
+
+    # --profile on the k = 15 golden
+    trace = os.path.join(WORK, "trace")
+    out = os.path.join(WORK, "profile_golden")
+    data = os.path.join(ROOT, "tests", "data")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["-f", os.path.join(data, "a1.fasta"), "-r",
+                       os.path.join(data, "b1.fasta"), "-t", "fa", "-o", "fa",
+                       "-k", "15", "-d", "4", "--device", "cuda",
+                       "--devices", "1", "--profile", trace,
+                       "--out-dir", out])
+    traces = [f for f in os.listdir(trace) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(trace, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    seen = {n: sum(f"::{DEVICE_FUNCTIONS[n]}(" in e for e in kernels)
+            for n in PATH_KERNELS[15]}
+    gold = os.path.join(ROOT, "tests", "golden", "fasta_in_paired_k15")
+    same = all(open(os.path.join(out, n), "rb").read()
+               == open(os.path.join(gold, n), "rb").read()
+               for n in os.listdir(gold) if n.startswith("output_"))
+    print(f"phase 12: --profile on the k=15 golden: exit {rc}, trace files "
+          f"{traces} ({os.path.getsize(os.path.join(trace, traces[0])):,} "
+          f"bytes, {len(kernels):,} device kernel events; per path kernel "
+          f"{seen}); golden byte-identical: {same}")
+    if rc or len(traces) != 1 or not all(seen.values()) or not same:
+        raise AssertionError("phase 12: --profile")
+    shutil.rmtree(trace)
+    shutil.rmtree(out)
+
+    # two host processes on the one card, gloo
+    second = [os.path.join(WORK, f"m{m}.fq") for m in (1, 2)]
+    for src, dst in zip(files, second):
+        with open(src, "rb") as a, open(dst, "wb") as b:
+            a.seek(CHECK_PAIRS * 315)
+            b.write(a.read(CHECK_PAIRS * 315))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(WORK, "multihost")
+    args = ["-m", "nomalise_kmers_multi_large_torch.cli", "-f",
+            check_files[0], second[0], "-r", check_files[1], second[1],
+            "-k", "15", "-d", "100", "-g", "0.9", "-p", "1",
+            "--batch-reads", "8192", "--device", "cuda", "--devices", "1"]
+    env = {**os.environ, "WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, *args, "--out-dir", f"{out}{r}"], cwd=ROOT,
+        env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        print("\n".join(log[-3000:] for log in logs))
+        raise AssertionError(f"phase 12: the host processes exited "
+                             f"{[p.returncode for p in procs]}")
+    m = re.search(r"Aggregated over 2 processes: Processed ([\d,]+), "
+                  r"Printed ([\d,]+), Skipped ([\d,]+), Max unique kmers in "
+                  r"a process: ([\d,]+)", logs[0])
+    got = tuple(int(x.replace(",", "")) for x in m.groups())
+    solo = [run_engine(15, dev, pair, f"solo{i}")
+            for i, pair in enumerate((check_files, second))]
+    sums = (sum(r[1].total_processed for r in solo),
+            sum(r[1].total_printed for r in solo),
+            sum(r[1].total_skipped for r in solo),
+            max(r[1].max_total_kmers for r in solo))
+    for r in range(2):
+        shutil.rmtree(f"{out}{r}")
+    for r in solo:
+        shutil.rmtree(r[2])
+    print(f"phase 12: two processes (gloo, one card), each on a "
+          f"{CHECK_PAIRS:,}-pair file pair, in {wall:.2f} s: aggregated "
+          f"{got}; the sum of single-process runs {sums}")
+    if got != sums:
+        raise AssertionError("phase 12: aggregated totals differ")
+
+
 def ptxas_usage(log: str) -> list[str]:
     """One line per kernel of a `nvcc -Xptxas -v` log: its registers,
     shared memory and spill stores."""
@@ -1625,6 +1951,8 @@ def main() -> int:
         phase("2 (long stream)", phase_scan_long, dev)
         phase("2 (large tables)", phase_kernels_large,
               np.random.default_rng(SEED + 7), dev)
+        phase("2 (row shards)", phase_kernels_row_shard,
+              np.random.default_rng(SEED + 10), dev)
 
         def hashed_kernel():
             timing.update(phase("11 (kernel)", phase_hashed_kernel_apart))
@@ -1650,12 +1978,14 @@ def main() -> int:
         phase("7", phase_ceiling, dev, files)
         phase("8", phase_relaxed, dev, files, exact, want)
         ref = {k: (exact[k]["digests"], exact[k]["spectrum"]) for k in exact}
+        walls = {k: exact[k]["wall"] for k in exact}
         del exact
         phase("9", phase_checkpoint, dev, check_files)
         phase("10", phase_debug, dev)
         hashed_kernel()
         launches.update(phase("11", phase_fallback, dev, files, check_files,
                               ref))
+        phase("12", phase_mesh, dev, files, check_files, ref, want, walls)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card_line())

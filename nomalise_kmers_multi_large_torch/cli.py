@@ -7,11 +7,16 @@ print_usage, :543-560 long_options), including the multi-value -f/-r and the
 skip-unreadable-files-with-warning behaviour (:763, :782), plus the engine's
 extensions: the port's copy of nomalise_kmers_multi_large_tpu/cli.py's
 parser. It adds ``--device`` (default ``cuda``; a run on a machine without
-CUDA fails rather than moving to the CPU).
+CUDA fails rather than moving to the CPU). ``--devices N`` runs on N
+devices of that type (0: every local one; parallel/mesh.py), in Mode A or,
+with ``--sharding global``, Mode B (parallel/engine.py). Under torchrun's
+variables each process takes its share of the input files and the totals
+are summed over the processes (parallel/multihost.py).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -165,12 +170,41 @@ def main(argv=None) -> int:
         build_parser().print_usage(sys.stderr)
         return 1
 
-    from nomalise_kmers_multi_large_torch.engine.pipeline import (
-        Normalizer, resolve_device,
+    from nomalise_kmers_multi_large_torch.parallel import multihost
+    from nomalise_kmers_multi_large_torch.parallel.engine import (
+        make_normalizer,
     )
 
     os.makedirs(cfg.out_dir, exist_ok=True)
-    norm = Normalizer(cfg, resolve_device(device))
+    pidx, pcount = multihost.maybe_initialize()
+    try:
+        if pcount > 1:
+            fwd, rev = multihost.assign_files(
+                cfg.forward_files, cfg.reverse_files, pidx, pcount)
+            cfg = dataclasses.replace(cfg, forward_files=fwd,
+                                      reverse_files=rev)
+        try:
+            norm = make_normalizer(cfg, device)
+        except ConfigError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
+        _run(norm)
+        report = multihost.aggregate_report(norm.report,
+                                            paired=bool(cfg.reverse_files))
+        if pcount > 1 and pidx == 0:
+            print(f"Aggregated over {pcount} processes: Processed "
+                  f"{report.total_processed:,}, Printed "
+                  f"{report.total_printed:,}, Skipped "
+                  f"{report.total_skipped:,}, Max unique kmers in a "
+                  f"process: {report.max_total_kmers:,}")
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def _run(norm):
+    """The startup line, the run, and the --spectrum blocks."""
+    cfg = norm.cfg
     # startup table report (reference parse_arguments :686): an int32 count
     # per slot, beside an int64 code (hashed), or int32 fingerprint planes,
     # two of them on the wide bucket table at k > 16 (bucket)
@@ -188,18 +222,17 @@ def main(argv=None) -> int:
     norm.run()
     if cfg.spectrum:
         _print_spectra(norm)
-    return 0
 
 
 def _print_spectra(norm):
     """One spectrum block per shard, as the JAX CLI prints them (with -p N
-    each shard counted ~1/N of the stream, and tables cannot be pooled: one
-    k-mer holds a slot in every shard)."""
+    or Mode A each shard counted ~1/N of the stream, and tables cannot be
+    pooled: one k-mer holds a slot in every shard; Mode B has one table)."""
     from nomalise_kmers_multi_large_torch.models.spectrum import spectrum
 
     n = len(norm.states)
     for s in range(n):
-        sp = spectrum(norm.tables[s], norm.states[s])
+        sp = spectrum(norm.tables[s], norm.shard_state(s))
         if n == 1:
             print("\n--- Kmer Spectrum ---")
         else:

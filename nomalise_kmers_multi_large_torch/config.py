@@ -4,9 +4,11 @@
 (the reference's ``struct config_t cfg`` and its validation rules,
 normalise_kmers_multi_large.c:208-231, parse_arguments :520-745, plus the
 engine's extensions). ``port_config`` resolves ``auto`` to a table kind
-and rejects, with a ConfigError, every option the port does not run yet,
-before ``validate``; so ``validate`` keeps only the rules that can still
-fire there.
+and rejects, with a ConfigError, the one combination the port does not run
+yet (``--sharding global`` on the direct or hashed table), before
+``validate``; so ``validate`` keeps only the rules that can still fire
+there. The device count is checked where the devices are known
+(parallel/mesh.py::data_devices).
 """
 from __future__ import annotations
 
@@ -203,6 +205,14 @@ class Config:
                 )
         if self.stride < 1 or self.stride > self.ksize:
             raise ConfigError(f"stride ({self.stride}) must be in [1, k]")
+        if self.sharding == "global" and self.stride != 1 \
+                and self.table == "bucket":
+            # Mode B routes every window of the batch to its row shard
+            raise ConfigError(
+                f"--stride {self.stride} is not supported with --sharding "
+                "global on the bucket table; use --sharding local or "
+                "--stride 1"
+            )
         if self.dispatch_group < 1:
             raise ConfigError(
                 f"dispatch-group ({self.dispatch_group}) must be >= 1")
@@ -217,19 +227,15 @@ def port_config(cfg: Config) -> Config:
     ``auto`` is the bucket table (the wide one at k = 16..31) while the
     depth per shard fits its exact counting range (<= 65535), and above
     that the direct table (k <= 15) or the hashed table: the JAX package's
-    rule on an accelerator backend, kept on every device."""
+    rule on an accelerator backend, kept on every device. ``--debug`` above
+    4 runs as 4, as in the JAX engine (the reference's probe traces have
+    no analogue on these tables)."""
     if cfg.table == "auto":
         table = "bucket"
         if cfg.depth_per_shard > MAX_BUCKET_DEPTH:
             table = "direct" if cfg.ksize <= 15 else "hashed"
         cfg = dataclasses.replace(cfg, table=table)
-    unported = [
-        (cfg.debug > 4, f"--debug {cfg.debug} (0 to 4 run)"),
-        (cfg.n_devices > 1, f"--devices {cfg.n_devices} (one device only)"),
-        (cfg.sharding == "global", "--sharding global"),
-        (bool(cfg.profile_dir), "--profile"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise ConfigError(f"{what} is not ported yet")
+    if cfg.sharding == "global" and cfg.table != "bucket":
+        raise ConfigError(f"--sharding global on the {cfg.table} table is "
+                          "not ported yet (Mode B runs on the bucket table)")
     return cfg.validate()

@@ -13,8 +13,10 @@
 // "fpA equal and, at k > 16, fpB equal", and an insert writing both planes.
 //
 // Three traps the narrow kernel never meets:
-// - a sentinel's w1 maps to row rows - 1, a real row, and a real code may
-//   have w1 = 0xFFFFFFFF too; so validity is w2 != 0xFFFFFFFF everywhere;
+// - a sentinel's w1 maps to row 2^(32 - row_shift) - 1: the last real row
+//   of a whole table, and past the rows of a Mode B row shard; a real code
+//   may have w1 = 0xFFFFFFFF too. So validity is w2 != 0xFFFFFFFF
+//   everywhere, and only a valid element's row is ever read or written;
 // - a full 32-bit w1 can equal any int tag, so lanes group by the 64-bit
 //   word pair in __match_any_sync, and a lane outside the row tags itself
 //   with its lane number over a low word no real w2 has (0xFFFFFFFF);
@@ -81,7 +83,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 }  // namespace
 
 // fpa, counts (and fpb, null at k = 16): int32 [rows, lanes], updated in
-// place; rows = 2^(32 - row_shift). high: int32 [n_reads] and stats: int32
+// place; rows a power of two <= 2^(32 - row_shift): a whole table, or a
+// row shard of one whose stream holds only rebased rows below `rows`. high: int32 [n_reads] and stats: int32
 // [2] (dropped, inserted), both zeroed by the caller.
 NKM_EXPORT int nkm_bucket_batch_wide(const void* sk1, const void* sk2,
                                      const void* p2, const void* p3,
@@ -93,8 +96,8 @@ NKM_EXPORT int nkm_bucket_batch_wide(const void* sk1, const void* sk2,
   int err = nkm_select_device(device);
   if (err) return err;
   if (lanes % 32 != 0 || lanes > kMaxLanes || row_shift < 1 ||
-      row_shift > 31 ||
-      (static_cast<int64_t>(rows) << row_shift) != (int64_t{1} << 32)) {
+      row_shift > 31 || rows < 1 || (rows & (rows - 1)) != 0 ||
+      (static_cast<int64_t>(rows) << row_shift) > (int64_t{1} << 32)) {
     return cudaErrorInvalidValue;
   }
   if (n > 0) {

@@ -25,7 +25,15 @@ while the device runs. Around that loop:
   describes exactly the records counted and no replay snapshot is pending;
 - the debug tiers: per-record PRINTED/SKIPPED lines (> 1), per-upsert lines
   from a host shadow table (> 2), the batch round-trip self-check (>= 3)
-  and the raw record dump (> 3).
+  and the raw record dump (> 3; above 4 as 4).
+
+parallel/engine.py::MeshNormalizer runs this loop over several devices
+through the hooks the JAX mesh engine overrides, under the port's names:
+``_shard_tables`` (each shard's descriptor and so its device), ``_deal``
+(which shard gets which records of a batch), ``_retire_flush`` (the order
+of a flush's retires), ``_install_resumed_states`` /
+``_states_for_checkpoint`` (the checkpoint layouts), ``shard_state`` and
+``step_class`` (the batch functions of a shard).
 """
 from __future__ import annotations
 
@@ -68,19 +76,30 @@ from nomalise_kmers_multi_large_torch.ops.mix import (
     feistel_words_np, mix32_np,
 )
 from nomalise_kmers_multi_large_torch.table import (
-    BucketTable, DirectTable, TableState, make_table,
+    DirectTable, TableState, make_table,
 )
 from nomalise_kmers_multi_large_torch.utils.prefetch import PrefetchIterator
-from nomalise_kmers_multi_large_torch.utils.profiling import StageTimer
+from nomalise_kmers_multi_large_torch.utils.profiling import (
+    StageTimer, device_trace,
+)
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _copy(state: TableState) -> TableState:
-    """A copy of every plane; an absent plane (keys2 = None) stays None."""
-    return TableState(*(None if x is None else x.clone() for x in state))
+def _copy(state: TableState, device=None) -> TableState:
+    """A copy of every plane, on `device` if given; an absent plane (keys2 =
+    None) stays None, and a plane held as a tuple of row shards (Mode B,
+    parallel/modes.py) is copied shard by shard on their own devices."""
+    def copy(x):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return tuple(p.clone() for p in x)
+        return x.to(device or x.device, copy=True)
+
+    return TableState(*(copy(x) for x in state))
 
 
 def _slice_batch(batch: RecordBatch, lo: int, hi: int) -> RecordBatch:
@@ -100,14 +119,16 @@ def resolve_device(device) -> torch.device:
 
 
 class Normalizer:
-    """Single-device engine (N logical shards)."""
+    """Single-device engine (N logical shards); parallel/engine.py's
+    MeshNormalizer runs it over several devices."""
+
+    #: the batch functions of a shard (a Mode B run swaps in its own)
+    step_class = BatchStep
 
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg = port_config(cfg)
         self.device = resolve_device(device)
-        t0 = make_table(cfg, self.device)
-        # shards share one descriptor until one grows
-        self.tables = [t0 for _ in range(cfg.shards)]
+        self.tables = self._shard_tables(make_table(cfg, self.device))
         self.states = [t.init() for t in self.tables]
         self.counters = [ShardCounters(s) for s in range(cfg.shards)]
         self.report = RunReport()
@@ -134,6 +155,10 @@ class Normalizer:
                          if cfg.debug > 2 else None)
         self.timer = StageTimer()
 
+    def _shard_tables(self, t0) -> list:
+        """Each shard's table descriptor: shards share one until one grows."""
+        return [t0 for _ in range(self.cfg.shards)]
+
     @staticmethod
     def _record_seq(file, cols, i: int) -> bytes:
         s0, sl = int(cols.seq_start[i]), int(cols.seq_len[i])
@@ -145,7 +170,7 @@ class Normalizer:
         key = (paired, id(self.tables[shard]))
         step = self._steps_cache.get(key)
         if step is None:
-            step = BatchStep(
+            step = self.step_class(
                 self.tables[shard],
                 k=self.cfg.ksize,
                 depth_per_shard=self.cfg.depth_per_shard,
@@ -321,14 +346,16 @@ class Normalizer:
 
     def _replicate_seeded_state(self):
         """Prime shard 0's occupancy mirror from its seeded state, then copy
-        the table to every shard (reference copy_hash_table :908-927)."""
+        the table to every shard (reference copy_hash_table :908-927), each
+        on its shard's device."""
         with self.timer.stage("seed"):
             # waits for the seed dispatches
             self._used_bound[0] = float(int(self.states[0].used))
         for s in range(1, len(self.states)):
-            self.tables[s] = self.tables[0]
+            dev = self.tables[s].device
+            self.tables[s] = self.tables[0].on(dev)
             self._used_bound[s] = self._used_bound[0]
-            self.states[s] = _copy(self.states[0])
+            self.states[s] = _copy(self.states[0], dev)
 
     def _seed_from_tsv(self, path: str):
         """Seed from a k-mer TSV (one k-mer per line, any count column
@@ -407,8 +434,11 @@ class Normalizer:
 
     # ------------------------------------------------------------------
     def run(self) -> RunReport:
+        """The whole run; with --profile inside a torch.profiler trace."""
         try:
-            return self._run()
+            with device_trace(self.cfg.profile_dir,
+                              cuda=self.device.type == "cuda"):
+                return self._run()
         finally:
             # on any exit: an interrupted run too leaves its output files
             # flushed (a resume truncates them to the checkpoint's sizes)
@@ -499,53 +529,35 @@ class Normalizer:
         cfg = self.cfg
         # records of this file retired (or skipped), for the checkpoints
         records_done = 0
-        # the dispatch in flight, retired one dispatch later
-        pending = None
+        # the dispatches of the last flush, retired at the next one
+        pending: list = []
         # per-shard staging queues for --dispatch-group
         groups: dict[int, list] = {}
 
-        def dispatch(shard: int, q: list):
-            """One staged-group dispatch, bracketed by what the overflow
-            grow-and-replay protocol needs: the descriptor and a copy of
-            the state before it, and the overflow/used counters after."""
-            table = self.tables[shard]
-            pre = self._replay_snapshot(shard)
-            with self.timer.stage("dispatch"):
-                result = self._dispatch_queue(shard, q, paired)
-            post = self.states[shard]
-            return (q, shard, result, table, pre, post.overflow, post.used)
-
-        def flush_shard(shard: int) -> int:
-            """Dispatch shard's staged batches; retire the previous
-            dispatch. Returns the records retired."""
+        def flush(shards) -> int:
+            """Dispatch the staged groups of `shards`, then retire the
+            previous flush's dispatches. Returns the records retired."""
             nonlocal pending
-            q = groups.pop(shard, None)
-            if not q:
-                return 0
-            w = q[0][1].shape[1] - cfg.ksize + 1
-            with self.timer.stage("grow_check"):
-                self._maybe_grow(shard, sum(x[1].shape[0] for x in q) * w)
-            entry = dispatch(shard, q)
-            done = 0
-            if pending is not None:
-                done = self._retire_checked(pending, paired)
-                replayed, self._replayed_shards = self._replayed_shards, set()
-                if shard in replayed:
-                    # the dispatch above consumed a state the replay has
-                    # just replaced: redo it on the replayed table
-                    entry = dispatch(shard, q)
-            pending = entry
+            entries = []
+            for shard in shards:
+                q = groups.pop(shard, None)
+                if not q:
+                    continue
+                w = q[0][1].shape[1] - cfg.ksize + 1
+                with self.timer.stage("grow_check"):
+                    self._maybe_grow(shard, sum(x[1].shape[0] for x in q) * w)
+                entries.append(self._dispatch(shard, q, paired))
+            done = self._retire_flush(pending, paired)
+            replayed, self._replayed_shards = self._replayed_shards, set()
+            # a dispatch above consumed a state that a replay has just
+            # replaced: redo it on the replayed table
+            pending = [self._dispatch(e[1], e[0], paired) if e[1] in replayed
+                       else e for e in entries]
             return done
 
         def drain() -> int:
             """Flush every staged queue and retire everything in flight."""
-            nonlocal pending
-            done = sum(flush_shard(s) for s in list(groups))
-            if pending is not None:
-                done += self._retire_checked(pending, paired)
-                self._replayed_shards.clear()
-                pending = None
-            return done
+            return flush(list(groups)) + flush(())
 
         def produce(it=it):
             """frame + pack, on the prefetch worker when cfg.prefetch > 0"""
@@ -584,23 +596,44 @@ class Normalizer:
                     since_ckpt = 0
                 if cfg.debug >= 3:
                     self._debug_roundtrip(bases, lengths)
-                shard = rr % cfg.shards
-                rr += 1
-                q = groups.setdefault(shard, [])
-                if q and q[0][1].shape != bases.shape:
-                    # the adaptive padding changed the batch shape: a group
-                    # must be shape-homogeneous
-                    records_done += flush_shard(shard)
+                full = []
+                for shard, item in self._deal(rr, batch, bases, lengths,
+                                              rec_valid):
                     q = groups.setdefault(shard, [])
-                q.append((batch, bases, lengths, rec_valid))
+                    if q and q[0][1].shape != item[1].shape:
+                        # the adaptive padding changed the batch shape: a
+                        # group must be shape-homogeneous
+                        records_done += flush((shard,))
+                        q = groups.setdefault(shard, [])
+                    q.append(item)
+                    if len(q) >= cfg.dispatch_group:
+                        full.append(shard)
+                rr += 1
                 since_ckpt += 1
-                if len(q) >= cfg.dispatch_group:
-                    records_done += flush_shard(shard)
+                if full:
+                    records_done += flush(full)
         finally:
             if isinstance(pit, PrefetchIterator):
                 pit.close()
         drain()
         return rr, since_ckpt
+
+    def _deal(self, rr: int, batch, bases, lengths, rec_valid) -> list:
+        """[(shard, (batch, bases, lengths, rec_valid))] of the rr-th
+        batch: the whole batch to shard rr mod N (round robin). Mode A
+        cuts it among the devices instead (parallel/engine.py)."""
+        return [(rr % self.cfg.shards, (batch, bases, lengths, rec_valid))]
+
+    def _dispatch(self, shard: int, q: list, paired: bool):
+        """One staged-group dispatch, bracketed by what the overflow
+        grow-and-replay protocol needs: the descriptor and a copy of the
+        state before it, and the overflow/used counters after."""
+        table = self.tables[shard]
+        pre = self._replay_snapshot(shard)
+        with self.timer.stage("dispatch"):
+            result = self._dispatch_queue(shard, q, paired)
+        post = self.states[shard]
+        return (q, shard, result, table, pre, post.overflow, post.used)
 
     # ------------------------------------------------------------------
     def _resume(self, ckpt: CheckpointManager):
@@ -610,7 +643,8 @@ class Normalizer:
         loaded = ckpt.load(self.device)
         if not loaded:
             return None
-        self.states, resume = loaded
+        states, resume = loaded
+        self._install_resumed_states(states)
         self.seeded_lo = resume.seeded_lo
         self._rebuild_tables_from_states()
         self._reseed_used_bounds()
@@ -634,6 +668,19 @@ class Normalizer:
                 )
         return resume
 
+    def _install_resumed_states(self, states: list):
+        """The checkpoint's states (on self.device), as the engine keeps
+        them; a mesh engine places them on its devices."""
+        self.states = states
+
+    def _states_for_checkpoint(self) -> list:
+        """One state per checkpoint file (shard{N}.npz)."""
+        return self.states
+
+    def shard_state(self, s: int = 0) -> TableState:
+        """Shard s's table state as one TableState (--spectrum)."""
+        return self.states[s]
+
     def _rebuild_tables_from_states(self):
         """Descriptors of the loaded states' shapes (a checkpoint may hold
         a grown table)."""
@@ -650,7 +697,7 @@ class Normalizer:
                 continue
             used = self.tables[s].used_count(st)
             self.states[s] = st._replace(used=torch.tensor(
-                used, dtype=torch.int32, device=self.device))
+                used, dtype=torch.int32, device=st.used.device))
             self._used_bound[s] = float(used)
 
     def _checkpoint(self, ckpt: CheckpointManager, file_index: int,
@@ -659,8 +706,9 @@ class Normalizer:
             w.flush()
         self._refresh_unique_counts()
         paths = [p for w in self.writers for p in w.paths()]
-        ckpt.save(self.states, self.counters, file_index, records_done,
-                  paths, rr, seeded_lo=self.seeded_lo, shadows=self._shadows)
+        ckpt.save(self._states_for_checkpoint(), self.counters, file_index,
+                  records_done, paths, rr, seeded_lo=self.seeded_lo,
+                  shadows=self._shadows)
 
     # ------------------------------------------------------------------
     def _replay_snapshot(self, shard: int) -> Optional[TableState]:
@@ -671,11 +719,18 @@ class Normalizer:
             return None
         return _copy(self.states[shard])
 
-    def _retire_checked(self, entry, paired: bool) -> int:
-        """Retire one dispatch, first checking its overflow counter against
-        the host mirror: growth there means a row filled and the kernel
-        dropped inserts, so the results are discarded and the group replayed
-        on a grown table (_grow_and_replay). Returns the records retired."""
+    def _retire_flush(self, entries: list, paired: bool) -> int:
+        """Retire a flush's dispatches, one after another. Returns the
+        records retired."""
+        return sum(self._retire(*part) for e in entries
+                   for part in self._checked(e, paired))
+
+    def _checked(self, entry, paired: bool) -> list:
+        """One dispatch's results, after checking its overflow counter
+        against the host mirror: growth there means a row filled and the
+        kernel dropped inserts, so the results are discarded and the group
+        replayed on a grown table (_grow_and_replay). Returns the arguments
+        of _retire for each of its batches."""
         q, shard, result, table, pre, post_of, post_used = entry
         with self.timer.stage("device_wait"):
             # first sync on this dispatch
@@ -689,7 +744,7 @@ class Normalizer:
         else:
             self._overflow_seen[shard] = of_post
             self._used_bound[shard] = float(int(post_used))
-        return self._retire_group([x[0] for x in q], shard, *result)
+        return self._group_parts([x[0] for x in q], shard, *result)
 
     def _grow_and_replay(self, shard: int, table, pre_state: TableState,
                          of_post: int, dispatch):
@@ -744,26 +799,23 @@ class Normalizer:
                 np.stack([x[2] for x in q]), np.stack([x[3] for x in q]))
         return result
 
-    def _retire_group(self, batches, shard, keep_dev, stats_dev,
-                      tallies_dev) -> int:
-        """Retire one dispatch: a single batch, or a step_many group whose
-        outputs carry a leading G axis. The per-read tallies reach the host
-        only for the --debug > 1 lines."""
+    def _group_parts(self, batches, shard, keep_dev, stats_dev,
+                     tallies_dev) -> list:
+        """The _retire arguments of each batch of one dispatch: a single
+        batch, or a step_many group whose outputs carry a leading G axis.
+        The per-read tallies reach the host only for the --debug > 1
+        lines."""
         if len(batches) == 1:
-            return self._retire(batches[0], shard, keep_dev, stats_dev,
-                                tallies_dev)
+            return [(batches[0], shard, keep_dev, stats_dev, tallies_dev)]
         with self.timer.stage("device_wait"):
             keep = keep_dev.cpu().numpy()
             stats = StepStats(*(x.cpu().numpy() for x in stats_dev))
             if self.cfg.debug > 1:
                 tallies_dev = ReadTallies(*(x.cpu().numpy()
                                             for x in tallies_dev))
-        done = 0
-        for g, b in enumerate(batches):
-            done += self._retire(b, shard, keep[g],
-                                 StepStats(*(x[g] for x in stats)),
-                                 ReadTallies(*(x[g] for x in tallies_dev)))
-        return done
+        return [(b, shard, keep[g], StepStats(*(x[g] for x in stats)),
+                 ReadTallies(*(x[g] for x in tallies_dev)))
+                for g, b in enumerate(batches)]
 
     def _retire(self, batch, shard, keep_dev, stats_dev, tallies_dev) -> int:
         with self.timer.stage("device_wait"):
@@ -894,7 +946,7 @@ class Normalizer:
                     f"FATAL: kmers do not match hash: {kmers[i]} vs "
                     f"{(int(vhi[i]) << 32) | int(vlo[i])}"
                 )
-        if cfg.stride != 1 or not isinstance(self.tables[0], BucketTable):
+        if cfg.stride != 1 or not self.tables[0].bucket:
             return
         b = torch.from_numpy(bases).to(self.device)
         ln = torch.from_numpy(lengths).to(self.device)

@@ -26,8 +26,9 @@ at k = 16). ``bucket_batch_wide`` sorts on one int64 key ``(w1 << 30) | w2``
 sort (unstable in relaxed mode), so the read id is the sorted position's
 stream index // windows per read; then the wide scan (K3w) and ``bucket_upsert_wide`` (K5,
 csrc/bucket_wide.cu; ``bucket_upsert_wide_plain`` for CPU tensors). Window
-validity is ``w2 != 0xFFFFFFFF``: a sentinel's w1 maps to the real row
-``rows - 1``.
+validity is ``w2 != 0xFFFFFFFF``: a sentinel's w1 maps to row
+``2^(32 - row_shift) - 1``, the last row of a whole table and past the rows
+of a row shard (Mode B), and no invalid element's row is ever read.
 """
 from __future__ import annotations
 
@@ -265,7 +266,9 @@ def bucket_upsert_wide(fpA, fpB, counts, sk1, sk2, p2, p3, *, row_shift: int,
         same, or None at k = 16.
       sk1, sk2: int32 [N] sorted sort words (sentinel pair (-1, -1) last);
         p2, p3: int32 [N] from the wide rank_cand_scan.
-      row_shift: rows = 2^(32 - row_shift), 8..23.
+      row_shift: the row of w1 is ``w1 >> row_shift``, 8..23; rows is
+        2^(32 - row_shift) for a whole table, less for a row shard of one
+        (Mode B), whose stream holds only its own rebased rows.
       depth, seed, n_reads: as bucket_upsert.
 
     Returns (high_per_read int32 [n_reads], stats int32 [2] = (dropped
@@ -278,12 +281,13 @@ def bucket_upsert_wide(fpA, fpB, counts, sk1, sk2, p2, p3, *, row_shift: int,
             and sk1.dim() == 1):
         raise ValueError("bucket_upsert_wide: sk1, sk2, p2, p3 must be [N]")
     rows, lanes = fpA.shape
-    if not 8 <= row_shift <= 23 or rows << row_shift != 1 << 32 or \
-            lanes % 32 or lanes > 128:
+    if not 8 <= row_shift <= 23 or rows < 1 or rows & (rows - 1) or \
+            rows << row_shift > 1 << 32 or lanes % 32 or lanes > 128:
         raise ValueError(f"bucket_upsert_wide: planes {tuple(fpA.shape)} "
-                         f"with row_shift {row_shift}: need rows = "
-                         "2^(32 - row_shift) in 2^9..2^24 and lanes a "
-                         "multiple of 32 up to 128")
+                         f"with row_shift {row_shift}: need power-of-two "
+                         "rows <= 2^(32 - row_shift) (a table, or one of "
+                         "its row shards) and lanes a multiple of 32 up to "
+                         "128")
     if not 1 <= n_reads <= MAX_READS or depth > 65535:
         raise ValueError(f"bucket_upsert_wide: n_reads={n_reads} or "
                          f"depth={depth} out of range")
@@ -308,15 +312,21 @@ def bucket_upsert_wide(fpA, fpB, counts, sk1, sk2, p2, p3, *, row_shift: int,
 
 
 def sort_stream_wide(w1_flat: torch.Tensor, w2_flat: torch.Tensor,
-                     windows_per_read: int, relaxed: bool = False):
-    """Sort a read-major stream on (w1, w2, read id).
+                     windows_per_read: int, relaxed: bool = False,
+                     rid_flat: Optional[torch.Tensor] = None):
+    """Sort a stream on (w1, w2, read id).
 
     One int64 key ``(w1 << 30) | w2`` (< 2^62), the sentinel pair mapped to
-    INT64_MAX, sorted stably: equal codes keep stream order, so the sorted
-    position's stream index // windows_per_read is its read id. Relaxed
-    mode sorts unstably (the JAX package's ``num_keys=2``): equal codes
-    reach the scan in any order. Returns (sk1, sk2, srid) int32 [N], the
-    sentinel pair back at (-1, -1)."""
+    INT64_MAX, sorted stably: equal codes keep stream order. In a read-major
+    stream the sorted position's stream index // windows_per_read is then
+    its read id. A stream that is not read-major (Mode B's received
+    stream: the pieces of D senders, each sorted by (w1, w2, read id))
+    passes its read ids as `rid_flat`, the sort's payload; the order is
+    then (w1, w2, read id) exactly when each code's copies arrive in
+    read-id order, which the senders' order gives. Relaxed mode sorts
+    unstably (the JAX package's ``num_keys=2``): equal codes reach the scan
+    in any order. Returns (sk1, sk2, srid) int32 [N], the sentinel pair
+    back at (-1, -1)."""
     w1 = w1_flat.to(torch.int64) & 0xFFFFFFFF
     w2 = w2_flat.to(torch.int64) & 0xFFFFFFFF
     packed = torch.where(w2 == 0xFFFFFFFF, _SORT_SENTINEL,
@@ -325,7 +335,8 @@ def sort_stream_wide(w1_flat: torch.Tensor, w2_flat: torch.Tensor,
     sent = packed == _SORT_SENTINEL
     sk1 = as_int32(torch.where(sent, -1, packed >> _W2_BITS))
     sk2 = as_int32(torch.where(sent, -1, packed & ((1 << _W2_BITS) - 1)))
-    return sk1, sk2, (order // windows_per_read).to(torch.int32)
+    srid = order // windows_per_read if rid_flat is None else rid_flat[order]
+    return sk1, sk2, srid.to(torch.int32)
 
 
 def bucket_batch_wide(fpA, fpB, counts, w1_flat, w2_flat, *,

@@ -9,6 +9,7 @@ two converters translate, so states and checkpoints cross both ways.
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -35,7 +36,20 @@ class CountTable:
 
     #: occupancy fraction that triggers growth; None: the table never grows
     grow_headroom: Optional[float] = None
+    #: True where a batch goes through the encode kernels' keys (K1/K2)
+    #: and the bucket kernels, False on the codec path
+    bucket = False
     device: torch.device
+
+    def on(self, device) -> "CountTable":
+        """This descriptor, or a copy of it whose states live on `device`
+        (the shards of a multi-device run)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        t = copy.copy(self)
+        t.device = device
+        return t
 
     @property
     def capacity(self) -> int:

@@ -94,6 +94,7 @@ def _split_rows(keys: torch.Tensor, counts: torch.Tensor, fb: int,
 class BucketTable(CountTable):
     #: True on the k > 15 table: two sort words, two fingerprint planes
     wide = False
+    bucket = True
 
     def __init__(self, k: int, rows: Optional[int] = None,
                  lanes: int = DEFAULT_LANES, device="cpu"):

@@ -1,12 +1,14 @@
-"""Host stage timers for the streaming loop (frame/pack/dispatch/write).
+"""Host stage timers for the streaming loop (frame/pack/dispatch/write), and
+the --profile device trace.
 
-The port's copy of nomalise_kmers_multi_large_tpu/utils/profiling.py::
-StageTimer. Its ``device_trace`` is not copied: it wraps ``jax.profiler``,
-and ``--profile`` is not ported yet.
+The port's copy of nomalise_kmers_multi_large_tpu/utils/profiling.py:
+``StageTimer`` as it is; ``device_trace`` writes a torch.profiler trace
+where the JAX package writes a ``jax.profiler`` one.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
@@ -42,3 +44,23 @@ class StageTimer:
                 f"{self.counts[name]} calls, {t / max(self.counts[name], 1) * 1e3:.2f} ms/call"
             )
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None, cuda: bool):
+    """torch.profiler over the block (CPU activity, and CUDA with `cuda`);
+    at its end one TensorBoard-readable Chrome trace,
+    ``<host>_<pid>.<ms>.pt.trace.json``, is written into trace_dir. Without
+    a trace_dir the block runs unprofiled."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    handler = torch.profiler.tensorboard_trace_handler(trace_dir)
+    with torch.profiler.profile(activities=acts, on_trace_ready=handler):
+        yield

@@ -798,3 +798,136 @@ def test_fallback_step_on_the_card_equals_cpu(dev, kind, k, mode):
         np.testing.assert_array_equal(x, y)
     assert (u1, o1) == (u2, o2) and o1 == 0
     assert 0 < int(g1[-1][2]) < 1024   # printed
+
+
+# ----------------------------------------------------------------------
+# Mode B's row shards and the multi-device engines
+
+def _row_shard_stream(dev, wide, rng, j, n_shards=4):
+    """Row shard j's received stream of one batch of 4096 reads (k = 25
+    wide, else 15) into a table of 2^21 rows cut n_shards ways: the batch's
+    codes that shard j owns, rebased, plus, on the last shard, real codes
+    whose w1 is 0xFFFFFFFF, and sentinels; sorted and scanned. Returns the
+    shard's descriptor and the kernel arguments."""
+    from nomalise_kmers_multi_large_torch.ops.encode_kernel import as_int32
+    from nomalise_kmers_multi_large_torch.parallel.modes import (
+        RowShardedBucketTable, owner_edges_narrow, owner_edges_wide,
+    )
+
+    k, reads = (25, 4096) if wide else (15, 4096)
+    whole = (BucketTableWide if wide else BucketTable)(k, rows=1 << 21,
+                                                       device=dev)
+    t = RowShardedBucketTable(whole, [dev] * n_shards)
+    bases, lengths = _reads(rng, reads, 150)
+    b = torch.from_numpy(bases).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    rid = torch.arange(reads, device=dev).repeat_interleave(150 - k + 1)
+    base = j * t.span
+    if wide:
+        w1, w2 = encode_keys_wide(b, ln, k, False)
+        (sk1, sk2, srid), e = owner_edges_wide(w1.reshape(-1),
+                                               w2.reshape(-1), rid,
+                                               n_shards, t.span)
+        lo, hi = int(e[j]), int(e[j + 1])
+        s1 = (sk1[lo:hi].to(torch.int64) & 0xFFFFFFFF) - base
+        s2, r = sk2[lo:hi], srid[lo:hi].to(torch.int64)
+        extra = 40 if j == n_shards - 1 else 0
+        s1 = torch.cat([s1, torch.full((extra,), t.span - 1, device=dev),
+                        torch.full((50,), 0xFFFFFFFF, device=dev)])
+        s2 = torch.cat([s2, torch.arange(extra, device=dev,
+                                         dtype=torch.int32) % 5,
+                        torch.full((50,), -1, device=dev,
+                                   dtype=torch.int32)])
+        r = torch.cat([r, torch.arange(extra + 50, device=dev) % reads])
+        sk1, sk2, srid = sort_stream_wide(as_int32(s1), s2, 1,
+                                          rid_flat=r)
+        p2, p3 = rank_cand_scan(sk1, srid, fp_bits=0, n_reads=reads,
+                                skey2=sk2, row_shift=t.shift)
+        return t, (sk1, sk2, p2, p3), reads
+    key = encode_keys(b, ln, k, False)
+    packed, e = owner_edges_narrow(key.reshape(-1), rid, n_shards, t.span)
+    seg = packed[int(e[j]):int(e[j + 1])]
+    skey = torch.cat([as_int32((seg >> 14) - base),
+                      torch.full((50,), -1, device=dev, dtype=torch.int32)])
+    r = torch.cat([seg & 16383, torch.arange(50, device=dev)])
+    skey, srid = sort_stream(skey, r)
+    p2, p3 = rank_cand_scan(skey, srid, fp_bits=t.shift, n_reads=reads)
+    return t, (skey, p2, p3), reads
+
+
+@pytest.mark.parametrize("j", [0, 3])
+@pytest.mark.parametrize("wide", [False, True])
+def test_bucket_kernels_on_a_row_shard_match_plain(dev, wide, j):
+    """K4 / K5 on row shard j of a 2^21-row table cut 4 ways (2^19 rows,
+    the whole table's fingerprint width), as Mode B runs them: a seed
+    batch, then a count batch, each equal to the plain version (planes,
+    high tallies, stats); sentinels beside the shard's last row count
+    nothing, and the codes whose w1 is 0xFFFFFFFF land in its last row."""
+    rng = np.random.default_rng(40 + j + 2 * wide)
+    planes = twins = None
+    for seed in (True, False):
+        t, stream, reads = _row_shard_stream(dev, wide, rng, j)
+        if planes is None:
+            st = t.init()
+            planes = [st.keys[j], st.keys2[j] if st.keys2 else None,
+                      st.counts[j]] if wide else [st.keys[j], st.counts[j]]
+            twins = [None if x is None else x.clone() for x in planes]
+        kw = dict(depth=3, seed=seed, n_reads=reads)
+        if wide:
+            kw["row_shift"] = t.shift
+            got = bucket_upsert_wide(*planes, *stream, **kw)
+            want = bucket_upsert_wide_plain(*twins, *stream, **kw)
+        else:
+            kw["fp_bits"] = t.shift
+            got = bucket_upsert(*planes, *stream, **kw)
+            want = bucket_upsert_plain(*twins, *stream, **kw)
+        torch.cuda.synchronize()
+        for a, b in [*zip(planes, twins), *zip(got, want)]:
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert int(got[1][1]) > 0 and int(got[1][0]) == 0
+    assert planes[0].shape == (1 << 19, 64)
+    if wide and j == 3:
+        assert int((planes[0][-1] != 0).sum()) >= 5
+
+
+def _mesh_run(tmp_path, sub, devices, sharding, k, inputs):
+    from nomalise_kmers_multi_large_torch.config import Config
+    from nomalise_kmers_multi_large_torch.parallel.engine import (
+        MeshNormalizer,
+    )
+
+    out = tmp_path / sub
+    out.mkdir()
+    cfg = Config(informat="fa", outformat="fa", ksize=k, depth=8,
+                 batch_reads=256, print_table=True, out_dir=str(out),
+                 sharding=sharding, **inputs)
+    norm = MeshNormalizer(cfg, devices)
+    rep = norm.run()
+    files = {p.name: p.read_bytes() for p in out.glob("output_*")}
+    return norm, (rep.total_processed, rep.total_printed,
+                  rep.max_total_kmers), files
+
+
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("sharding,k", [("local", 15), ("local", 25),
+                                        ("global", 15), ("global", 25)])
+def test_mesh_on_the_card_equals_cpu(dev, tmp_path, sharding, k, skew):
+    """Mode A and Mode B with 4 shards on the card (one card repeated) and
+    on 4 cpu devices, on 1000 pairs of tests/data or (skew) 2000 copies of
+    one pair: output files, -P dumps and totals equal; every state tensor
+    on the card."""
+    inputs = {}
+    for name, key in (("a1", "forward_files"), ("b1", "reverse_files")):
+        lines = (pathlib.Path(__file__).parent / "data"
+                 / f"{name}.fasta").read_text().splitlines(True)
+        text = "".join(lines[:2] * 2000 if skew else lines[:2000])
+        (tmp_path / f"{name}.fa").write_text(text)
+        inputs[key] = (str(tmp_path / f"{name}.fa"),)
+    norm, *card = _mesh_run(tmp_path, "card", [dev] * 4, sharding, k, inputs)
+    _, *cpu = _mesh_run(tmp_path, "cpu", [torch.device("cpu")] * 4,
+                        sharding, k, inputs)
+    assert card == cpu and card[0][0] == (2000 if skew else 1000)
+    for st in norm.states:
+        for x in st:
+            for p in (x if isinstance(x, tuple) else (x,)):
+                assert p is None or p.device.type == "cuda"

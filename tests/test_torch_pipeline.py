@@ -101,13 +101,15 @@ def test_growth_between_dispatch_and_overflowing_retire(tmp_path, capsys):
     (dict(ksize=21, table="hashed"), "hashed"),         # wide, hashed
     (dict(table="direct"), "direct"),
     (dict(mode="relaxed", table="direct"), "direct"),   # direct, relaxed
-    (dict(checkpoint_every=5, n_devices=2), None),
-    (dict(debug=5), None),                              # tiers 0..4 run
+    (dict(checkpoint_every=5, n_devices=2, sharding="global",
+          table="direct"), None),                       # Mode B: bucket only
+    (dict(debug=5, sharding="global", table="hashed"), None),
     (dict(spectrum=True), "bucket"),
     (dict(seed_table="x.tsv"), "bucket"),
-    (dict(n_devices=2), None),
-    (dict(sharding="global"), None),
-    (dict(profile_dir="trace"), None),
+    (dict(n_devices=2, sharding="global", table="direct"), None),
+    (dict(sharding="global", table="hashed"), None),
+    (dict(profile_dir="trace", sharding="global", ksize=13,
+          depth=200000), None),                # auto -> direct: no Mode B
     (dict(mode="relaxed"), "bucket"),
     (dict(ksize=21, mode="relaxed"), "bucket"),
     (dict(checkpoint_every=5, resume=True), "bucket"),
@@ -116,13 +118,30 @@ def test_growth_between_dispatch_and_overflowing_retire(tmp_path, capsys):
 ])
 def test_table_rule_and_unported_options(changes, table):
     """The table each config resolves to, or None where port_config still
-    rejects an option."""
+    rejects an option: --sharding global on the direct or hashed table."""
     cfg = Config(forward_files=("a.fa",), single=True, **changes)
     if table:
         assert port_config(cfg).table == table
     else:
         with pytest.raises(ConfigError):
             port_config(cfg)
+
+
+@pytest.mark.parametrize("changes", [
+    dict(checkpoint_every=5, n_devices=2),
+    dict(debug=5),
+    dict(debug=9, ksize=25),
+    dict(n_devices=4),
+    dict(sharding="global"),
+    dict(sharding="global", ksize=25, n_devices=2),
+    dict(profile_dir="trace"),
+])
+def test_multi_device_profile_and_deep_debug_accepted(changes):
+    """Options the port runs since its multi-device slice: every
+    --devices, Mode B on the bucket table, --profile, --debug above 4."""
+    cfg = port_config(Config(forward_files=("a.fa",), single=True,
+                             **changes))
+    assert cfg.table == "bucket"
 
 
 def test_port_imports_no_jax():
@@ -133,7 +152,12 @@ def test_port_imports_no_jax():
             "nomalise_kmers_multi_large_torch.table.hashed, "
             "nomalise_kmers_multi_large_torch.ops.streamrank, "
             "nomalise_kmers_multi_large_torch.ops.hashed_kernel, "
-            "nomalise_kmers_multi_large_torch.models.spectrum; "
+            "nomalise_kmers_multi_large_torch.models.spectrum, "
+            "nomalise_kmers_multi_large_torch.parallel.engine, "
+            "nomalise_kmers_multi_large_torch.parallel.mesh, "
+            "nomalise_kmers_multi_large_torch.parallel.modes, "
+            "nomalise_kmers_multi_large_torch.parallel.multihost, "
+            "nomalise_kmers_multi_large_torch.utils.profiling; "
             "sys.exit(1 if any(m == 'jax' or m.startswith("
             "('jax.', 'nomalise_kmers_multi_large_tpu')) "
             "for m in sys.modules) else 0)")

@@ -2,6 +2,7 @@
 goldens on the CPU, and afterwards neither ``jax`` nor any module of the JAX
 package has been imported. Its own copies of the CLI parser and of
 ``Config`` behave as the JAX package's."""
+import os
 import pathlib
 import subprocess
 import sys
@@ -71,6 +72,32 @@ def test_port_cli_relaxed_checkpoints_debug3_without_jax_package(tmp_path):
     assert (tmp_path / "ckpt" / "shadow0.npz").exists()
 
 
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_port_cli_multi_device_and_profile_without_jax_package(tmp_path,
+                                                               mode):
+    """The modules of Modes A and B, the multi-host hooks and --profile
+    import nothing of JAX either: the k = 15 golden on 2 logical CPU
+    devices, profiled."""
+    args = ["-f", str(DATA / "a1.fasta"), "-r", str(DATA / "b1.fasta"),
+            "-t", "fa", "-o", "fa", "-k", "15", "-d", "4", "--devices", "2",
+            "--sharding", mode, "--profile", str(tmp_path / "trace"),
+            "--device", "cpu", "--out-dir", str(tmp_path)]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _RUN, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout[-2000:]
+    assert list((tmp_path / "trace").glob("*.pt.trace.json"))
+    if mode == "global":
+        for base in ("output_forward", "output_reverse"):
+            name = f"{base}.k15_norm4_thread0.fastq"
+            assert (tmp_path / name).read_bytes() == \
+                (GOLDEN / "fasta_in_paired_k15" / name).read_bytes()
+    else:
+        assert len(list(tmp_path.glob("output_*_thread1.fastq"))) == 2
+
+
 def _flags(parser):
     return {(a.dest, tuple(a.option_strings), repr(a.default), a.nargs, a.type)
             for a in parser._actions if a.dest != "help"}
@@ -90,6 +117,7 @@ def test_port_parser_keeps_every_reference_flag():
     dict(memory_gb=-1), dict(batch_reads=0), dict(batch_reads=16385),
     dict(stride=16), dict(dispatch_group=0), dict(prefetch=-1),
     dict(depth=70000), dict(mode="fast"), dict(table="direct", ksize=21),
+    dict(sharding="global", stride=2),
 ])
 def test_config_validates_like_reference_config(changes):
     kw = dict(forward_files=("a.fq",), single=True, table="bucket")

@@ -76,13 +76,18 @@ def test_upsert_wide_guard_takes_row_shift_8():
 
 
 @pytest.mark.parametrize("rows,row_shift", [
-    (1 << 23, 8),    # planes too small for the shift
+    (1 << 23, 8),    # half a table's rows: a row shard of Mode B
     (1 << 25, 7),    # past the ceiling
     (1 << 24, 9),    # planes too large for the shift
 ])
 def test_upsert_wide_guard_refuses_mismatched_planes(rows, row_shift):
+    """The guard refuses planes with more rows than the shift addresses,
+    and a shift outside 8..23; fewer rows (a row shard) go on to the
+    device check."""
     planes, stream, kw = _upsert_args(rows, row_shift, "meta")
-    with pytest.raises(ValueError, match=r"2\^9..2\^24"):
+    shard = 8 <= row_shift <= 23 and rows << row_shift <= 1 << 32
+    match = "one CUDA device" if shard else r"rows <= 2\^\(32 - row_shift\)"
+    with pytest.raises(ValueError, match=match):
         bucket_upsert_wide(*planes, *stream, **kw)
 
 

@@ -74,7 +74,7 @@ def test_table_rule_takes_wide_k(k):
 
 @pytest.mark.parametrize("changes", [
     dict(ksize=32),
-    dict(ksize=25, debug=5),
+    dict(ksize=25, sharding="global", table="hashed"),
 ])
 def test_table_rule_rejects_what_the_wide_path_lacks(changes):
     with pytest.raises(ConfigError):
