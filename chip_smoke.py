@@ -104,7 +104,10 @@ Phases, each of which fails the run on error:
    into a table of 2^27 slots after a 4-batch seed pass, and again after
    random codes fill it to 0.45 load. Equal sets of (code, count), new
    and unresolved codes, and observed counts; its bytes are counted on the
-   card from the probes the kernel made. Then both goldens on cuda with
+   card from the probes the kernel made. Also, not timed, on a Mode B slot
+   shard: the last of 4 shards (2^25 slots) of a 2^27-slot table, fed only
+   the codes it owns of the same seed and count batches, equal to the
+   plain version. Then both goldens on cuda with
    --table direct -k 15 and --table hashed -k 25; phase 4's 1,000,000
    pairs with --table direct -k 15 (a dense 4^15 x 4 B table) and
    --table hashed -k 25 -m 1 (2^26 slots, which must grow): outputs
@@ -122,7 +125,16 @@ Phases, each of which fails the run on error:
    and -k 25: outputs byte-identical to phases 4/5, totals equal, overflow
    0, the global table grown, every row shard on the card, K1-K5 launched,
    its wall time beside phase 4/5's; on a machine with >= 4 cards, again
-   on 4 distinct cards. Mode B under full skew (20,000 copies of one pair,
+   on 4 distinct cards. Mode B on the fallback tables, 4 shards of the
+   card, phase 4's pairs as phase 11 runs them (--table direct -k 15;
+   --table hashed -k 25 -m 1, 4 shards of 2^24 slots, which must grow):
+   outputs byte-identical to phases 4/5, spectra equal, totals equal,
+   overflow 0, every shard on the card, the hashed kernel launched on the
+   hashed run and none of K1-K5 on either; wall time, peak device memory
+   and doublings beside phase 11's one-device walls; then the whole table
+   gathered onto the card (the hashed one through its kernel) and split
+   back, each timed, its contents kept. Mode B under full skew (20,000
+   copies of one pair,
    every window of a batch in a few row shards): byte-identical to the
    one-device run. Mode A on 4 shards, phase 4's pairs at -k 15: four
    thread files of each mate named norm25, totals, every state on the
@@ -200,6 +212,8 @@ HASHED_KERNEL_FLAG = "--hashed-kernel"  # phase 11's kernel check, apart
 MESH_SHARDS = 4           # phase 12: shards of Modes A and B (and phase 2's
                           # row-shard check)
 SKEW_PAIRS = 20_000       # phase 12: copies of one pair
+#: phases 11 and 12: the fallback tables' 1M-pair runs (table, k, options)
+FALLBACK_RUNS = (("direct", 15, []), ("hashed", 25, ["-m", "1"]))
 
 REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
     "encode_keys": "nomalise_kmers_multi_large_tpu/ops/encode_kernel.py:289",
@@ -1351,7 +1365,9 @@ def phase_hashed_kernel(rng, dev) -> dict:
     """The hashed table's find-or-insert kernel against its plain version
     on one k = 25 batch into a HASH_SLOTS table, after a 4-batch seed pass
     and again at HASH_LOAD: the same (code, count) sets, new and unresolved
-    codes and observed counts; then both timed from the same planes."""
+    codes and observed counts; then both timed from the same planes. Also
+    (not timed) on Mode B's slot shard: the last of MESH_SHARDS shards of
+    HASH_SLOTS slots, fed the codes of the same batches that it owns."""
     from nomalise_kmers_multi_large_torch.ops import codec
     from nomalise_kmers_multi_large_torch.ops.hashed_kernel import (
         hashed_insert, hashed_insert_plain,
@@ -1359,6 +1375,10 @@ def phase_hashed_kernel(rng, dev) -> dict:
     from nomalise_kmers_multi_large_torch.ops.streamrank import (
         sorted_occurrence_stream,
     )
+    from nomalise_kmers_multi_large_torch.parallel.modes import (
+        SlotShardedHashedTable,
+    )
+    from nomalise_kmers_multi_large_torch.table import HashedTable
 
     k, reads = 25, BATCH_READS
     batches = read_batches(rng, dev, 5)
@@ -1426,6 +1446,40 @@ def phase_hashed_kernel(rng, dev) -> dict:
         return out
 
     out = {"hashed_insert": check("phase 11 (kernel, 4-batch fill)")}
+
+    # Mode B's slot shard: the last of MESH_SHARDS shards of a HASH_SLOTS
+    # table, fed only the codes it owns (the top bits of their slot hash)
+    whole = SlotShardedHashedTable(HashedTable(k, HASH_SLOTS),
+                                   [dev] * MESH_SHARDS)
+    j = MESH_SHARDS - 1
+    shard = whole.shards[j].init()
+    for bases in batches[:4]:
+        sb = stream(bases)
+        hashed_insert(shard.keys, torch.where(
+            sb.boundary & (whole.owner(sb.code) == j), sb.code, 0),
+            outputs=False)
+    mine = whole.owner(heads) == j
+    own_heads = torch.where(mine, heads, 0)
+    own_mult = torch.where(mine, s.mult, 0)
+    twins = (shard.keys.clone(), shard.counts.clone())
+    got = hashed_insert(shard.keys, own_heads, own_mult, shard.counts)
+    want = hashed_insert_plain(twins[0], own_heads, own_mult, twins[1])
+    err = max_abs_err([*zip(table(shard.keys, shard.counts), table(*twins)),
+                       (got.stats[:2], want.stats[:2]),
+                       (observed(got), observed(want))])
+    held = shard.keys[shard.keys != 0]
+    print(f"phase 11 (kernel, slot shard): shard {j} of {MESH_SHARDS} "
+          f"({shard.keys.numel():,} slots of {HASH_SLOTS:,}): "
+          f"{int(held.numel()):,} codes held, all its own: "
+          f"{bool((whole.owner(held) == j).all())}; a batch's "
+          f"{int((own_heads != 0).sum()):,} owned distinct codes, "
+          f"{int(got.stats[0]):,} new, {int(got.stats[1]):,} unresolved; "
+          f"max_abs_err {err}")
+    if err or not bool((whole.owner(held) == j).all()):
+        raise AssertionError("phase 11: the kernel on a slot shard differs "
+                             "from its plain version")
+    del shard, twins, got, want, held
+
     # the fuller fill: random distinct nonzero 50-bit codes (k = 25 codes)
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 8)
@@ -1461,11 +1515,12 @@ def phase_hashed_kernel_apart() -> dict:
     return json.loads(lines[-1])
 
 
-def phase_fallback(dev, files, check_files, ref: dict) -> dict:
+def phase_fallback(dev, files, check_files, ref: dict):
     """The direct and hashed tables end to end: goldens, phase 4's pairs
     held to phases 4/5 (`ref`: k -> (output digests, spectrum)), the first
     pairs on cuda and cpu, and --table auto above depth 65535. Returns the
-    hashed run's launches."""
+    hashed run's launches, and the wall time of each table's 1M-pair run
+    (phase 12 prints Mode B's beside it)."""
     from nomalise_kmers_multi_large_torch import backend
     from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 
@@ -1484,8 +1539,8 @@ def phase_fallback(dev, files, check_files, ref: dict) -> dict:
             snaps.append((a, b))
         return copy
 
-    launches = {}
-    for table, k, extra in (("direct", 15, []), ("hashed", 25, ["-m", "1"])):
+    launches, walls = {}, {}
+    for table, k, extra in FALLBACK_RUNS:
         opts = ["--table", table, *extra]
         snaps.clear()
         backend.reset_launches()
@@ -1532,6 +1587,7 @@ def phase_fallback(dev, files, check_files, ref: dict) -> dict:
                                  f"{int(st.overflow)}, {doublings} doublings")
         if table == "hashed":
             launches["hashed_insert"] = got["hashed_insert"]
+        walls[table] = wall
         del norm, st
         shutil.rmtree(out)
         torch.cuda.empty_cache()
@@ -1563,7 +1619,7 @@ def phase_fallback(dev, files, check_files, ref: dict) -> dict:
               f"totals {outs['cuda'][2]}; outputs equal: {ok}")
         if not ok:
             raise AssertionError(f"phase 11: auto at k={k}: {outs}")
-    return launches
+    return launches, walls
 
 
 def phase_kernels_row_shard(rng, dev):
@@ -1667,10 +1723,12 @@ def _on_card(state) -> bool:
                for p in (x if isinstance(x, tuple) else (x,)))
 
 
-def phase_mesh(dev, files, check_files, ref: dict, want: dict, walls: dict):
+def phase_mesh(dev, files, check_files, ref: dict, want: dict, walls: dict,
+               fallback_walls: dict):
     """Modes A and B on MESH_SHARDS shards of the one card, --profile and
     two host processes (gloo) on it. `ref`: k -> (output digests, spectrum)
-    of phases 4/5; `want`: their totals; `walls`: their wall times."""
+    of phases 4/5; `want`: their totals; `walls`: their wall times;
+    `fallback_walls`: phase 11's one-device walls by table."""
     from nomalise_kmers_multi_large_torch import backend, cli
     from nomalise_kmers_multi_large_torch.parallel.mesh import data_devices
 
@@ -1721,6 +1779,8 @@ def phase_mesh(dev, files, check_files, ref: dict, want: dict, walls: dict):
                                      "differs from the one-device run")
             del st
             torch.cuda.empty_cache()
+
+    phase_mode_b_fallback(dev, shards, files, ref, want, fallback_walls)
 
     # full skew: every window of every batch one pair's
     skew = [os.path.join(WORK, f"skew{m}.fq") for m in (1, 2)]
@@ -1860,6 +1920,76 @@ def phase_mesh(dev, files, check_files, ref: dict, want: dict, walls: dict):
         raise AssertionError("phase 12: aggregated totals differ")
 
 
+def phase_mode_b_fallback(dev, shards, files, ref: dict, want: dict,
+                          walls: dict):
+    """Mode B on the direct and hashed tables, `shards` (MESH_SHARDS shards
+    of the card), phase 4's pairs as phase 11 runs them: outputs and
+    spectra equal to phases 4/5's, totals equal, overflow 0, every shard on
+    the card, the hashed kernel launched on the hashed run and none of
+    K1-K5 on either; then the whole table gathered onto the card and split
+    back, each timed."""
+    from nomalise_kmers_multi_large_torch import backend
+    from nomalise_kmers_multi_large_torch.models.spectrum import spectrum
+
+    for table, k, extra in FALLBACK_RUNS:
+        backend.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        norm, rep, out, first = run_engine(
+            k, dev, files, f"mode_b_{table}",
+            ["--sharding", "global", "--table", table, *extra],
+            devices=shards)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = backend.launches()
+        t, st = norm.tables[0], norm.states[0]
+        doublings = (t.capacity // first.capacity).bit_length() - 1
+        same = out_digests(out) == ref[k][0]
+        spec = spectrum_of(norm)
+        on_card = _on_card(st)
+        shutil.rmtree(out)
+        # the checkpoint's conversions at this size: gather (on the card;
+        # the hashed table through its kernel, shard by shard) and split
+        t1 = time.perf_counter()
+        whole = t.gather(st, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        back = t.split(whole)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        sp = spectrum(None, whole)
+        kept = (int(whole.used), int(whole.overflow), int(back.used),
+                int(back.overflow)) == (int(st.used), 0, int(st.used), 0) \
+            and (sp.distinct_kmers, sp.total_kmers,
+                 sp.histogram.tolist()) == spec
+        del whole, back
+        print(f"phase 12: Mode B --table {table} -k {k} on {MESH_SHARDS} "
+              f"shards: {rep.total_processed:,} pairs in {wall:.2f} s "
+              f"(phase 11, one device: {walls[table]:.2f} s), seed pass "
+              f"included; printed {rep.total_printed:,}; distinct k-mers "
+              f"{rep.max_total_kmers:,}; table {first.capacity:,} -> "
+              f"{t.capacity:,} slots in {MESH_SHARDS} shards, {doublings} "
+              f"doublings; overflow {int(st.overflow)}; peak device memory "
+              f"{peak:,} bytes; outputs equal to phase "
+              f"{4 if k == 15 else 5}'s: {same}; spectrum equal: "
+              f"{spec == ref[k][1]}; totals equal: {totals(rep) == want[k]}"
+              f"; shards on the card: {on_card}; launches {got}; gather "
+              f"{t2 - t1:.3f} s and split {t3 - t2:.3f} s of the whole "
+              f"table, contents kept: {kept}")
+        bucket = [n for n in BUCKET_KERNELS if got[n]]
+        if bucket or (got["hashed_insert"] > 0) != (table == "hashed"):
+            raise AssertionError(f"phase 12: Mode B {table}: launches {got}")
+        if not same or spec != ref[k][1] or totals(rep) != want[k] \
+                or int(st.overflow) or not on_card or not kept:
+            raise AssertionError(f"phase 12: Mode B {table} differs from "
+                                 "the one-device run, or a shard left the "
+                                 "card")
+        del norm, st
+        torch.cuda.empty_cache()
+
+
 def ptxas_usage(log: str) -> list[str]:
     """One line per kernel of a `nvcc -Xptxas -v` log: its registers,
     shared memory and spill stores."""
@@ -1983,9 +2113,11 @@ def main() -> int:
         phase("9", phase_checkpoint, dev, check_files)
         phase("10", phase_debug, dev)
         hashed_kernel()
-        launches.update(phase("11", phase_fallback, dev, files, check_files,
-                              ref))
-        phase("12", phase_mesh, dev, files, check_files, ref, want, walls)
+        got, fallback_walls = phase("11", phase_fallback, dev, files,
+                                    check_files, ref)
+        launches.update(got)
+        phase("12", phase_mesh, dev, files, check_files, ref, want, walls,
+              fallback_walls)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card_line())

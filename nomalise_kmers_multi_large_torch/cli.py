@@ -232,7 +232,7 @@ def _print_spectra(norm):
 
     n = len(norm.states)
     for s in range(n):
-        sp = spectrum(norm.tables[s], norm.shard_state(s))
+        sp = spectrum(norm.tables[s], norm.states[s])
         if n == 1:
             print("\n--- Kmer Spectrum ---")
         else:

@@ -4,11 +4,11 @@
 (the reference's ``struct config_t cfg`` and its validation rules,
 normalise_kmers_multi_large.c:208-231, parse_arguments :520-745, plus the
 engine's extensions). ``port_config`` resolves ``auto`` to a table kind
-and rejects, with a ConfigError, the one combination the port does not run
-yet (``--sharding global`` on the direct or hashed table), before
-``validate``; so ``validate`` keeps only the rules that can still fire
-there. The device count is checked where the devices are known
-(parallel/mesh.py::data_devices).
+before ``validate``, so ``validate`` keeps only the rules that can still
+fire there; the port runs every combination the JAX package runs. The
+device count is checked where the devices are known
+(parallel/mesh.py::data_devices, and a Mode B table's power-of-two rule in
+parallel/modes.py).
 """
 from __future__ import annotations
 
@@ -222,20 +222,17 @@ class Config:
 
 
 def port_config(cfg: Config) -> Config:
-    """Resolve ``table="auto"``, reject what is not ported, and validate.
+    """Resolve ``table="auto"``, then validate.
 
     ``auto`` is the bucket table (the wide one at k = 16..31) while the
     depth per shard fits its exact counting range (<= 65535), and above
     that the direct table (k <= 15) or the hashed table: the JAX package's
-    rule on an accelerator backend, kept on every device. ``--debug`` above
-    4 runs as 4, as in the JAX engine (the reference's probe traces have
-    no analogue on these tables)."""
+    rule on an accelerator backend, kept on every device and in both
+    sharding modes. ``--debug`` above 4 runs as 4, as in the JAX engine
+    (the reference's probe traces have no analogue on these tables)."""
     if cfg.table == "auto":
         table = "bucket"
         if cfg.depth_per_shard > MAX_BUCKET_DEPTH:
             table = "direct" if cfg.ksize <= 15 else "hashed"
         cfg = dataclasses.replace(cfg, table=table)
-    if cfg.sharding == "global" and cfg.table != "bucket":
-        raise ConfigError(f"--sharding global on the {cfg.table} table is "
-                          "not ported yet (Mode B runs on the bucket table)")
     return cfg.validate()

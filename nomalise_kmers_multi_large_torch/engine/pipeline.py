@@ -32,8 +32,8 @@ through the hooks the JAX mesh engine overrides, under the port's names:
 ``_shard_tables`` (each shard's descriptor and so its device), ``_deal``
 (which shard gets which records of a batch), ``_retire_flush`` (the order
 of a flush's retires), ``_install_resumed_states`` /
-``_states_for_checkpoint`` (the checkpoint layouts), ``shard_state`` and
-``step_class`` (the batch functions of a shard).
+``_states_for_checkpoint`` (the checkpoint layouts) and ``step_class``
+(the batch functions of a shard).
 """
 from __future__ import annotations
 
@@ -75,9 +75,7 @@ from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
 from nomalise_kmers_multi_large_torch.ops.mix import (
     feistel_words_np, mix32_np,
 )
-from nomalise_kmers_multi_large_torch.table import (
-    DirectTable, TableState, make_table,
-)
+from nomalise_kmers_multi_large_torch.table import TableState, make_table
 from nomalise_kmers_multi_large_torch.utils.prefetch import PrefetchIterator
 from nomalise_kmers_multi_large_torch.utils.profiling import (
     StageTimer, device_trace,
@@ -296,7 +294,7 @@ class Normalizer:
 
     @property
     def _direct(self) -> bool:
-        return isinstance(self.tables[0], DirectTable)
+        return self.tables[0].seeds_on_host
 
     def _seed_files(self):
         cfg = self.cfg
@@ -676,10 +674,6 @@ class Normalizer:
     def _states_for_checkpoint(self) -> list:
         """One state per checkpoint file (shard{N}.npz)."""
         return self.states
-
-    def shard_state(self, s: int = 0) -> TableState:
-        """Shard s's table state as one TableState (--spectrum)."""
-        return self.states[s]
 
     def _rebuild_tables_from_states(self):
         """Descriptors of the loaded states' shapes (a checkpoint may hold

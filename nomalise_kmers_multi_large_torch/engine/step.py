@@ -143,9 +143,11 @@ class BatchStep:
     # ------------------------------------------------------------------
     # the direct and hashed tables
 
-    def _encode(self, bases, lengths):
-        """int64 codes [R, W'] and their validity, stride-sampled."""
-        b, ln = _on(bases, self.device), _on(lengths, self.device)
+    def _encode(self, bases, lengths, device=None):
+        """int64 codes [R, W'] and their validity, stride-sampled, on
+        `device` (default: the table's)."""
+        device = device or self.device
+        b, ln = _on(bases, device), _on(lengths, device)
         code = codec.window_codes(b, self.k, self.canonical)
         valid = codec.code_validity(ln, code, self.k)
         if self.stride > 1:

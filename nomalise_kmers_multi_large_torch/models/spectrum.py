@@ -23,15 +23,25 @@ class SpectrumReport(NamedTuple):
     genome_size_estimate: int  # total_kmers / coverage_peak (0 if no peak)
 
 
+def _histogram(counts, keys, max_count: int) -> np.ndarray:
+    occupied = counts != 0 if keys is None else keys != 0
+    return torch.bincount(counts[occupied].clamp(0, max_count),
+                          minlength=max_count + 1).cpu().numpy()
+
+
 def spectrum(table, state, max_count: int = 1024) -> SpectrumReport:
     """The spectrum of one shard's table: direct (keys None: a slot is its
     code, a zero count an unseen k-mer), hashed, bucket or wide bucket (a
     slot is occupied where ``keys`` is nonzero, and bin 0 counts the
     occupied slots still at count 0: seeds never seen since). Only the
-    counts of occupied slots are binned, clamped to max_count."""
-    occupied = state.counts != 0 if state.keys is None else state.keys != 0
-    counts = state.counts[occupied].clamp(0, max_count)
-    hist = torch.bincount(counts, minlength=max_count + 1).cpu().numpy()
+    counts of occupied slots are binned, clamped to max_count. A Mode B
+    state, whose planes are tuples of shards (parallel/modes.py), is binned
+    shard by shard on each shard's device, and the histograms summed."""
+    counts = state.counts if isinstance(state.counts, tuple) \
+        else (state.counts,)
+    keys = state.keys if isinstance(state.keys, tuple) \
+        else (state.keys,) * len(counts)
+    hist = sum(_histogram(c, k, max_count) for c, k in zip(counts, keys))
 
     distinct = int(hist[1:].sum())
     total = int((hist * np.arange(hist.shape[0], dtype=np.int64)).sum())

@@ -12,13 +12,19 @@ shards placed on a list of devices (parallel/mesh.py):
   of the one-device engine: it grows, and replays a dispatch that dropped
   inserts, on its own (the JAX mesh engines skip grow-and-replay, so a full
   row loses inserts there; the port does not copy that).
-- Mode B (``--sharding global``, the bucket table): one exact table
-  row-range-sharded over the devices (parallel/modes.py), thread-0 files,
-  full depth, decisions equal to a one-device run's. It grows as one table
-  (every row shard doubles) and replays as the one-device engine does.
+- Mode B (``--sharding global``): one exact table sharded over the devices
+  (parallel/modes.py: the bucket table by row range, the direct table by
+  code range, the hashed table by the top bits of the slot hash), thread-0
+  files, full depth, decisions equal to a one-device run's. It grows as one
+  table (every shard doubles), gated on the whole table's occupancy, and
+  replays as the one-device engine does: the hashed table too, which the
+  JAX package starts at --memory_start and lets saturate there. The direct
+  table neither grows nor replays, and keeps its seeds on the host.
 
 Checkpoints keep the JAX package's layouts: D shard states in Mode A, one
-whole-table state in Mode B (the row shards concatenated).
+whole-table state in Mode B (the row or code ranges concatenated; the
+hashed shards inserted into one table of the whole capacity), which the
+one-device engines of both packages resume, and the reverse.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from nomalise_kmers_multi_large_torch.engine.pipeline import (
 )
 from nomalise_kmers_multi_large_torch.parallel.mesh import data_devices
 from nomalise_kmers_multi_large_torch.parallel.modes import (
-    ModeAStep, ModeBBucketStep, RowShardedBucketTable,
+    ModeAStep, ModeBBucketStep, ModeBStreamStep, mode_b_table,
 )
 
 
@@ -42,9 +48,8 @@ class MeshNormalizer(Normalizer):
         n = len(self.devices)
         self.mode_b = cfg.sharding == "global"
         if self.mode_b:
-            # the device count and the table are checked by
-            # RowShardedBucketTable, the batch's read rows by Config
-            self.step_class = ModeBBucketStep
+            # the device count and the table are checked by the Mode B
+            # table (mode_b_table), the batch's read rows by Config
             eff = dataclasses.replace(cfg, shards=1)
         else:
             # the reference's -p sets depth per thread and the output
@@ -58,10 +63,13 @@ class MeshNormalizer(Normalizer):
             eff = dataclasses.replace(cfg, shards=n)
         self._mode_a = ModeAStep(self.devices)
         super().__init__(eff, self.devices[0])
+        if self.mode_b:
+            self.step_class = (ModeBBucketStep if self.tables[0].bucket
+                               else ModeBStreamStep)
 
     def _shard_tables(self, t0) -> list:
         if self.mode_b:
-            return [RowShardedBucketTable(t0, self.devices)]
+            return [mode_b_table(t0, self.devices)]
         return self._mode_a.tables(t0)
 
     def _deal(self, rr: int, batch, bases, lengths, rec_valid) -> list:
@@ -90,22 +98,15 @@ class MeshNormalizer(Normalizer):
         if not self.mode_b:
             self.states = self._mode_a.place(states)
             return
-        t = self.tables[0]
-        rows = int(states[0].keys.shape[0])
-        if rows != t.rows:
-            t = t.with_rows(rows)
-            self.tables = [t]
-        self.states = [t.split(states[0])]
+        self.tables = [self.tables[0].for_whole(states[0])]
+        self.states = [self.tables[0].split(states[0])]
 
     def _states_for_checkpoint(self) -> list:
         if self.mode_b:
-            return [self.tables[0].gather(self.states[0], "cpu")]
+            # the hashed table's gather inserts on the first device (its
+            # kernel), one shard at a time; the checkpoint copies to host
+            return [self.tables[0].gather(self.states[0], self.devices[0])]
         return self.states
-
-    def shard_state(self, s: int = 0):
-        if self.mode_b:
-            return self.tables[0].gather(self.states[0], self.devices[0])
-        return self.states[s]
 
 
 def make_normalizer(cfg: Config, device="cuda") -> Normalizer:

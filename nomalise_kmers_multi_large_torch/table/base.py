@@ -39,6 +39,10 @@ class CountTable:
     #: True where a batch goes through the encode kernels' keys (K1/K2)
     #: and the bucket kernels, False on the codec path
     bucket = False
+    #: True where a seeded code (count 0) cannot be told from an absent one
+    #: (the direct tables): the engine keeps the seeds on the host
+    #: (``seeded_lo``), and used_count and export read them
+    seeds_on_host = False
     device: torch.device
 
     def on(self, device) -> "CountTable":

@@ -28,6 +28,8 @@ _COUNT_CHUNK = 1 << 26
 
 
 class DirectTable(CountTable):
+    seeds_on_host = True
+
     def __init__(self, k: int, device="cpu"):
         if not 1 <= k <= 15:
             raise ValueError("DirectTable supports k <= 15 (4^k int32 slots)")

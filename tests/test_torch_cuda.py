@@ -890,7 +890,7 @@ def test_bucket_kernels_on_a_row_shard_match_plain(dev, wide, j):
         assert int((planes[0][-1] != 0).sum()) >= 5
 
 
-def _mesh_run(tmp_path, sub, devices, sharding, k, inputs):
+def _mesh_run(tmp_path, sub, devices, sharding, k, inputs, **kw):
     from nomalise_kmers_multi_large_torch.config import Config
     from nomalise_kmers_multi_large_torch.parallel.engine import (
         MeshNormalizer,
@@ -898,9 +898,10 @@ def _mesh_run(tmp_path, sub, devices, sharding, k, inputs):
 
     out = tmp_path / sub
     out.mkdir()
-    cfg = Config(informat="fa", outformat="fa", ksize=k, depth=8,
-                 batch_reads=256, print_table=True, out_dir=str(out),
-                 sharding=sharding, **inputs)
+    cfg = Config(**{"informat": "fa", "outformat": "fa", "ksize": k,
+                    "depth": 8, "batch_reads": 256, "print_table": True,
+                    "out_dir": str(out), "sharding": sharding, **inputs,
+                    **kw})
     norm = MeshNormalizer(cfg, devices)
     rep = norm.run()
     files = {p.name: p.read_bytes() for p in out.glob("output_*")}
@@ -931,3 +932,93 @@ def test_mesh_on_the_card_equals_cpu(dev, tmp_path, sharding, k, skew):
         for x in st:
             for p in (x if isinstance(x, tuple) else (x,)):
                 assert p is None or p.device.type == "cuda"
+
+
+# ----------------------------------------------------------------------
+# Mode B on the direct and hashed tables
+
+def _synthetic_pairs(tmp_path, n_pairs=20000, seed=11):
+    """n_pairs 2 x 100 bp FASTA pairs from 300 random 500 bp transcripts
+    (the mate is the reverse complement 200 bp on), 0.5 % substitutions."""
+    rng = np.random.default_rng(seed)
+    tx = rng.integers(0, 4, size=(300, 500), dtype=np.uint8)
+    which = rng.integers(0, 300, size=n_pairs)
+    start = rng.integers(0, 200, size=n_pairs)
+    cols = start[:, None] + np.arange(100)
+    fwd = tx[which[:, None], cols]
+    rev = 3 - tx[which[:, None], cols + 200][:, ::-1]
+    inputs = {}
+    for name, key, reads in (("s1", "forward_files", fwd),
+                             ("s2", "reverse_files", rev)):
+        sub = rng.random(reads.shape) < 0.005
+        reads = np.where(sub, rng.integers(0, 4, size=reads.shape), reads)
+        seqs = np.frombuffer(b"ACGT", np.uint8)[reads]
+        path = tmp_path / f"{name}.fa"
+        path.write_bytes(b"".join(b">p%d\n%s\n" % (i, row.tobytes())
+                                  for i, row in enumerate(seqs)))
+        inputs[key] = (str(path),)
+    return inputs
+
+
+@pytest.mark.parametrize("table,k", [("direct", 15), ("hashed", 25)])
+def test_mode_b_fallback_on_the_card_equals_cpu(dev, tmp_path, monkeypatch,
+                                                table, k):
+    """Mode B on the direct and hashed tables with 4 shards on the card and
+    on 4 cpu devices, on 20,000 synthetic pairs (the hashed table from 2^16
+    slots, so it grows, every shard at once): every file (reads and -P
+    dumps) byte-identical and the totals equal; every shard on the card;
+    the hashed kernel launched on the hashed run, and none of K1-K5."""
+    from nomalise_kmers_multi_large_torch import backend
+    from nomalise_kmers_multi_large_torch.config import Config
+
+    monkeypatch.setattr(Config, "initial_hash_capacity",
+                        property(lambda self: 1 << 16))
+    inputs = _synthetic_pairs(tmp_path)
+    backend.reset_launches()
+    norm, *card = _mesh_run(tmp_path, "card", [dev] * 4, "global", k,
+                            inputs, table=table, batch_reads=4096)
+    launches = backend.launches()
+    _, *cpu = _mesh_run(tmp_path, "cpu", [torch.device("cpu")] * 4,
+                        "global", k, inputs, table=table, batch_reads=4096)
+    assert card == cpu and card[0][0] == 20000 and 0 < card[0][1] < 20000
+    assert len(card[1]) == 4 and int(norm.states[0].overflow) == 0
+    assert (launches["hashed_insert"] > 0) == (table == "hashed")
+    assert not any(launches[n] for n in launches if n != "hashed_insert")
+    if table == "hashed":
+        assert norm.tables[0].capacity > 1 << 16
+    for x in norm.states[0]:
+        for p in (x if isinstance(x, tuple) else (x,)):
+            assert p is None or p.device.type == "cuda"
+
+
+@pytest.mark.parametrize("j", [0, 3])
+def test_hashed_kernel_on_a_slot_shard_matches_plain(dev, j):
+    """The kernel on shard j of a 2^18-slot table cut 4 ways (2^16 slots,
+    Mode B's hashed shard), fed a seed batch and then a count batch of
+    only the codes the shard owns: equal to the plain version, no code
+    unresolved, and every code it holds its own."""
+    from nomalise_kmers_multi_large_torch.ops.hashed_kernel import (
+        hashed_insert_plain,
+    )
+    from nomalise_kmers_multi_large_torch.parallel.modes import (
+        SlotShardedHashedTable,
+    )
+    from nomalise_kmers_multi_large_torch.table import HashedTable
+
+    t = SlotShardedHashedTable(HashedTable(25, 1 << 18), [dev] * 4)
+    rng = np.random.default_rng(50 + j)
+    codes = _hashed_codes(rng, 60000)
+    own = codes[t.owner(torch.from_numpy(codes)).numpy() == j]
+    first, rest = own[:own.size // 2], own[own.size // 2:]
+    keys = torch.zeros(1 << 16, dtype=torch.int64)
+    counts = torch.zeros(1 << 16, dtype=torch.int32)
+    _check_hashed(dev, keys, counts, first, seed=True)
+    hashed_insert_plain(keys, torch.from_numpy(first))
+    codes = np.unique(np.concatenate([first[::2], rest]))
+    codes = np.where(rng.random(codes.size) < 0.2, 0, codes)  # non-heads
+    mult = rng.integers(1, 5, codes.size, dtype=np.int32)
+    mult[codes == 0] = 0
+    stats = _check_hashed(dev, keys, counts, codes, mult)
+    assert int(stats[0]) > 0 and int(stats[1]) == 0
+    held = keys[keys != 0]
+    assert held.numel() == first.size and bool((t.owner(held) == j).all())

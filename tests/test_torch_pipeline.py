@@ -15,7 +15,7 @@ import torch
 
 from nomalise_kmers_multi_large_torch import cli
 from nomalise_kmers_multi_large_torch.config import (
-    Config, ConfigError, port_config,
+    Config, port_config,
 )
 from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
 
@@ -102,14 +102,14 @@ def test_growth_between_dispatch_and_overflowing_retire(tmp_path, capsys):
     (dict(table="direct"), "direct"),
     (dict(mode="relaxed", table="direct"), "direct"),   # direct, relaxed
     (dict(checkpoint_every=5, n_devices=2, sharding="global",
-          table="direct"), None),                       # Mode B: bucket only
-    (dict(debug=5, sharding="global", table="hashed"), None),
+          table="direct"), "direct"),                   # Mode B, direct
+    (dict(debug=5, sharding="global", table="hashed"), "hashed"),
     (dict(spectrum=True), "bucket"),
     (dict(seed_table="x.tsv"), "bucket"),
-    (dict(n_devices=2, sharding="global", table="direct"), None),
-    (dict(sharding="global", table="hashed"), None),
+    (dict(n_devices=2, sharding="global", table="direct"), "direct"),
+    (dict(sharding="global", table="hashed"), "hashed"),
     (dict(profile_dir="trace", sharding="global", ksize=13,
-          depth=200000), None),                # auto -> direct: no Mode B
+          depth=200000), "direct"),            # auto -> direct, in Mode B
     (dict(mode="relaxed"), "bucket"),
     (dict(ksize=21, mode="relaxed"), "bucket"),
     (dict(checkpoint_every=5, resume=True), "bucket"),
@@ -117,14 +117,11 @@ def test_growth_between_dispatch_and_overflowing_retire(tmp_path, capsys):
     (dict(debug=4, ksize=25), "bucket"),
 ])
 def test_table_rule_and_unported_options(changes, table):
-    """The table each config resolves to, or None where port_config still
-    rejects an option: --sharding global on the direct or hashed table."""
+    """The table each config resolves to: port_config accepts every
+    option, --sharding global on the direct and hashed tables too (auto
+    above depth 65535 included)."""
     cfg = Config(forward_files=("a.fa",), single=True, **changes)
-    if table:
-        assert port_config(cfg).table == table
-    else:
-        with pytest.raises(ConfigError):
-            port_config(cfg)
+    assert port_config(cfg).table == table
 
 
 @pytest.mark.parametrize("changes", [

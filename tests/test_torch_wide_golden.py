@@ -74,7 +74,6 @@ def test_table_rule_takes_wide_k(k):
 
 @pytest.mark.parametrize("changes", [
     dict(ksize=32),
-    dict(ksize=25, sharding="global", table="hashed"),
 ])
 def test_table_rule_rejects_what_the_wide_path_lacks(changes):
     with pytest.raises(ConfigError):
@@ -84,9 +83,10 @@ def test_table_rule_rejects_what_the_wide_path_lacks(changes):
 @pytest.mark.parametrize("changes", [
     dict(ksize=25, table="hashed"),
     dict(ksize=25, depth=70000),
+    dict(ksize=25, sharding="global", table="hashed"),
 ])
 def test_table_rule_takes_hashed_at_wide_k(changes):
     """--table hashed, and auto at a depth per shard above 65535, resolve
-    to the hashed table at k = 16..31."""
+    to the hashed table at k = 16..31, in Mode B (--sharding global) too."""
     cfg = port_config(Config(forward_files=("a.fa",), single=True, **changes))
     assert cfg.table == "hashed"
