@@ -23,7 +23,7 @@ Phases, each of which fails the run on error:
    again behind a longer hold; the script fails after three such runs.
    Then the same ten calls, with their setup, run once under
    torch.profiler: `kernel_ms` is the mean duration of the kernel's own
-   device events (DEVICE_FUNCTIONS), without the launch gaps and the
+   device events (KERNEL_FUNCTIONS), without the launch gaps and the
    setup's write-backs that the event windows also hold, and
    `kernel_share` is the bound over it. A profile that holds fewer of the
    kernel's events than calls is taken again; the script fails after three
@@ -51,7 +51,20 @@ Phases, each of which fails the run on error:
    on the timed batch. Past the old 2^21-row ceiling of the wide table, K3w
    and K5 are checked for equality (not timed) at row_shift 10 (2^22 rows)
    and 8 (2^24 rows, 12 GiB of planes) on one k = 25 batch into a table
-   seeded by three. K4 and K5 are also checked (not timed) on a Mode B
+   seeded by three. The gate of a table that can grow (the engine's
+   all-or-nothing replay protocol): the check kernels
+   (bucket_overflow_check, k <= 15, and bucket_overflow_check_wide) against
+   their plain versions at k = 15 and 25 on the main path's batch, on a
+   2^21-row table after a 4-batch seed pass (the batch fits: the gate
+   stays open, and K4/K5 gated behind it equal the ungated plain version;
+   the check timed there beside its bound, the stream's words plus a count
+   and one lane of each touched row, and the occupied lanes of the rows
+   that may overflow), then on a 2^14-row table seeded by one batch (the
+   batch overflows: both close the gate with its ticket, gated K4/K5 leave
+   every plane bit-identical with zero stats while the ungated plain
+   version drops inserts), and behind a closed gate (a later batch that
+   fits changes nothing, and the ticket stays). K4 and K5 are also checked
+   (not timed) on a Mode B
    row shard: the last of 4 row shards of a 2^21-row table (2^19 rows, the
    whole table's fingerprint width), fed the shard's routed part of four
    seed batches and a count batch at k = 15 and 25, with 1,000 sentinels
@@ -65,9 +78,11 @@ Phases, each of which fails the run on error:
    log-normal abundance, 0.2% substitutions), normalised with the
    reference defaults (-k 15 -d 100 -g 0.9 -p 1 --batch-reads 8192) through
    Normalizer.run(). Kernel launch counts are zeroed just before and read
-   just after; every kernel of the path must have launched. The first
-   20,000 pairs also run through the CPU plain path, whose output must be
-   byte-identical.
+   just after; every kernel of the path, the check pass of the gate
+   included, must have launched. It prints the run's peak device memory
+   (torch.cuda.max_memory_allocated(), reset just before, and what was
+   allocated before the run). The first 20,000 pairs also run through the
+   CPU plain path, whose output must be byte-identical.
 5. The wide path on the same files at -k 25 (otherwise as phase 4): the
    same checks, and the table must have grown from its 2^14 rows.
 6. Only with --profile: phases 4 and 5 again on the same files, each one
@@ -203,6 +218,15 @@ from nomalise_kmers_multi_large_torch.bench.trace import (
     DEVICE_FUNCTIONS, busy_us, by_name,
 )
 
+#: each kernel's device function as a profile names it ("::<name>("): the
+#: bench's, and the check passes of the gate, which the bench does not
+#: count
+KERNEL_FUNCTIONS = {
+    **DEVICE_FUNCTIONS,
+    "bucket_overflow_check": "bucket_overflow_check_kernel",
+    "bucket_overflow_check_wide": "bucket_overflow_check_wide_kernel",
+}
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke_work")
 SEED = 20240823
@@ -220,6 +244,7 @@ PROFILE_ATTEMPTS = 3      # profiles that may lose events
 LONG_SCAN = 20_000_000    # phase 2's long scan stream (~4,900 tiles)
 LONG_RUN = 200_000        # one code repeated across ~49 tiles in it
 LARGE_ROW_SHIFTS = (10, 8)  # phase 2's wide tables of 2^22 and 2^24 rows
+GATE_ROWS = 1 << 14       # phase 2's table that one batch overflows
 OLD_CEILING_ROWS = 1 << 21  # phase 7's table must grow past it
 RELAXED_MAX_DELTA = 0.01  # phase 8: largest share of changed decisions
 CKPT_BATCH_PAIRS = 2048   # phase 9: 10 batches of the 20,000 pairs
@@ -240,6 +265,12 @@ REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
     "encode_keys": "nomalise_kmers_multi_large_tpu/ops/encode_kernel.py:289",
     "rank_cand_scan": "nomalise_kmers_multi_large_tpu/ops/segscan.py:194",
     "bucket_batch": "nomalise_kmers_multi_large_tpu/ops/bucket_kernel.py:549",
+    # the check passes hold K4/K5's drop rule (the TPU kernels' overflow
+    # count) ahead of the write: part of the same pallas_calls' port
+    "bucket_overflow_check":
+        "nomalise_kmers_multi_large_tpu/ops/bucket_kernel.py:549",
+    "bucket_overflow_check_wide":
+        "nomalise_kmers_multi_large_tpu/ops/bucket_kernel.py:1127",
     "encode_keys_wide":
         "nomalise_kmers_multi_large_tpu/ops/encode_kernel.py:236",
     "rank_cand_scan_wide": "nomalise_kmers_multi_large_tpu/ops/segscan.py:194",
@@ -250,10 +281,16 @@ REPLACES = {  # kernel -> the TPU kernel's pallas_call it replaces
 }
 #: the kernels each path runs; a path's run must launch every one of them
 PATH_KERNELS = {
-    15: ("encode_keys", "rank_cand_scan", "bucket_batch"),
-    25: ("encode_keys_wide", "rank_cand_scan_wide", "bucket_batch_wide"),
+    15: ("encode_keys", "rank_cand_scan", "bucket_overflow_check",
+         "bucket_batch"),
+    25: ("encode_keys_wide", "rank_cand_scan_wide",
+         "bucket_overflow_check_wide", "bucket_batch_wide"),
 }
-#: K1-K5, which the direct and hashed paths must not launch
+#: the gate's check pass of each path: a one-device table that can grow
+#: runs it, Mode B's row-sharded table never does
+GATE_KERNELS = {15: "bucket_overflow_check", 25: "bucket_overflow_check_wide"}
+#: K1-K5 and the check passes, which the direct and hashed paths must not
+#: launch
 BUCKET_KERNELS = PATH_KERNELS[15] + PATH_KERNELS[25]
 
 
@@ -355,10 +392,10 @@ def profiled_ms(tag: str, fn, setup=None, iters=10) -> float:
 
 
 def kernel_ms(name: str, fn, setup=None) -> float:
-    """Kernel `name`'s own device duration per call (its DEVICE_FUNCTIONS
+    """Kernel `name`'s own device duration per call (its KERNEL_FUNCTIONS
     events), without the launch gaps and the setup's write-backs that
     time_ms's event windows also hold."""
-    return profiled_ms(f"::{DEVICE_FUNCTIONS[name]}(", fn, setup)
+    return profiled_ms(f"::{KERNEL_FUNCTIONS[name]}(", fn, setup)
 
 
 def copy_ms(work_bytes: int, setup) -> float:
@@ -873,6 +910,186 @@ def phase_kernels_large(rng, dev):
     torch.cuda.empty_cache()
 
 
+def check_work(code_rows: torch.Tensor, fp_planes, stream_words: int,
+               n_elems: int) -> tuple[int, str]:
+    """Bytes the check pass of one batch needs, from its data: every
+    element's sort words (to find the rows' ends); the count (p3) and one
+    lane of plane A of each touched row (lane lanes - d is empty, d the
+    row's distinct codes, exactly when occupancy + d <= lanes); and, for a
+    row where it is occupied, its occupied lanes of each plane.
+    `code_rows`: the row of each distinct code of the batch; `fp_planes`:
+    the fingerprint planes before the batch."""
+    lanes = fp_planes[0].shape[1]
+    touched, d = torch.unique(code_rows, return_counts=True)
+    occ = (fp_planes[0][touched] != 0).sum(1)
+    slow = occ + d > lanes
+    total = (4 * stream_words * n_elems + 8 * touched.numel()
+             + 4 * len(fp_planes) * int(occ[slow].sum()))
+    return total, (f"{touched.numel():,} rows touched, {int(slow.sum()):,} "
+                   f"of them with lane lanes - d occupied")
+
+
+def phase_gate(rng, dev) -> dict:
+    """The check kernels against their plain versions, and K4/K5 behind
+    the gate, at k = 15 and 25 on main-path batches (the module
+    docstring's phase 2); the check timed on the batch that fits."""
+    from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
+        Gate, bucket_overflow_check, bucket_overflow_check_plain,
+        bucket_overflow_check_wide, bucket_overflow_check_wide_plain,
+        bucket_upsert, bucket_upsert_plain, bucket_upsert_wide,
+        bucket_upsert_wide_plain, sort_stream, sort_stream_wide,
+    )
+    from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
+        encode_keys, encode_keys_wide,
+    )
+    from nomalise_kmers_multi_large_torch.ops.segscan import rank_cand_scan
+    from nomalise_kmers_multi_large_torch.table.bucket import (
+        BucketTable, BucketTableWide,
+    )
+
+    reads = BATCH_READS
+    lengths = torch.full((reads,), 150, dtype=torch.int32, device=dev)
+    batches = read_batches(rng, dev, 6)
+    out = {}
+    for k in (15, 25):
+        wide = k > 15
+        name = GATE_KERNELS[k]
+        check, check_plain = (
+            (bucket_overflow_check_wide, bucket_overflow_check_wide_plain)
+            if wide else (bucket_overflow_check, bucket_overflow_check_plain))
+        upsert, upsert_plain = ((bucket_upsert_wide, bucket_upsert_wide_plain)
+                                if wide else
+                                (bucket_upsert, bucket_upsert_plain))
+
+        def make(rows):
+            table = (BucketTableWide if wide else BucketTable)(
+                k, rows=rows, device=dev)
+            st = table.init()
+            planes = [st.keys, st.keys2, st.counts] if wide else \
+                [st.keys, st.counts]
+            return table, planes
+
+        def shift(table):
+            return ({"row_shift": table.row_shift} if wide
+                    else {"fp_bits": table.fp_bits})
+
+        def stream(table, bases):
+            if wide:
+                w1, w2 = encode_keys_wide(bases, lengths, k, False)
+                sk1, sk2, srid = sort_stream_wide(
+                    w1.reshape(-1), w2.reshape(-1), w1.shape[1])
+                return (sk1, sk2), rank_cand_scan(
+                    sk1, srid, fp_bits=0, n_reads=reads, skey2=sk2,
+                    row_shift=table.row_shift)
+            key = encode_keys(bases, lengths, k, False)
+            rid = torch.arange(key.numel(), device=dev) // key.shape[1]
+            skey, srid = sort_stream(key.reshape(-1), rid)
+            return (skey,), rank_cand_scan(skey, srid, fp_bits=table.fp_bits,
+                                           n_reads=reads)
+
+        def run_check(fn, table, planes, words, scan, flag, ticket):
+            fn(*planes[:len(planes) - 1], *words, *scan, Gate(flag, ticket),
+               **shift(table))
+
+        def run_upsert(fn, table, planes, words, scan, seed, flag=None):
+            return fn(*planes, *words, *scan, depth=100, seed=seed,
+                      n_reads=reads, gate=flag, **shift(table))
+
+        def flags(table, planes, words, scan, start, ticket):
+            """(kernel's, plain version's) gate after the check from an
+            open (start 0) or closed gate."""
+            got = []
+            for fn in (check, check_plain):
+                flag = torch.full((1,), start, dtype=torch.int32, device=dev)
+                run_check(fn, table, planes, words, scan, flag, ticket)
+                got.append(int(flag))
+            return got
+
+        def code_rows(table, words):
+            """The row of each distinct code of a sorted stream."""
+            w = [x.to(torch.int64) & 0xFFFFFFFF for x in words]
+            if wide:
+                ok = w[1] != 0xFFFFFFFF
+                codes = torch.unique((w[0][ok] << 32) | w[1][ok])
+                return codes >> (32 + table.row_shift)
+            ok = (w[0] != 0xFFFFFFFF) & ((w[0] >> table.fp_bits) < table.rows)
+            return torch.unique(w[0][ok]) >> table.fp_bits
+
+        # fits: the phase 2 table after a 4-batch seed pass
+        table, planes = make(TABLE_ROWS)
+        for bases in batches[:4]:
+            run_upsert(upsert, table, planes, *stream(table, bases), True)
+        words, scan = stream(table, batches[4])
+        fits = flags(table, planes, words, scan, 0, 5)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        flush = l2_flush(dev)
+
+        def setup():
+            flush()
+            flag.zero_()
+
+        fp_planes = planes[:2] if wide else planes[:1]
+        nbytes, detail = check_work(code_rows(table, words), fp_planes,
+                                    len(words), words[0].numel())
+        row = timed(name,
+                    lambda: run_check(check, table, planes, words, scan,
+                                      flag, 5),
+                    lambda: run_check(check_plain, table, planes, words,
+                                      scan, flag, 5),
+                    nbytes, 0, setup=setup, flushed=True)
+        twins = [None if x is None else x.clone() for x in planes]
+        flag.zero_()
+        got = run_upsert(upsert, table, planes, words, scan, False, flag)
+        want = run_upsert(upsert_plain, table, twins, words, scan, False)
+        fits_err = max_abs_err([*((a, b) for a, b in zip(planes, twins)
+                                  if a is not None), *zip(got, want)])
+        # sticky: a later batch behind a gate closed with ticket 3
+        words, scan = stream(table, batches[5])
+        sticky = flags(table, planes, words, scan, 3, 9)
+        start = [None if x is None else x.clone() for x in planes]
+        flag.fill_(3)
+        got = run_upsert(upsert, table, planes, words, scan, False, flag)
+        sticky_err = max_abs_err([*((a, b) for a, b in zip(planes, start)
+                                    if a is not None), (got[1], 0 * got[1])])
+        del table, planes, twins, start
+        torch.cuda.empty_cache()
+
+        # overflows: a GATE_ROWS-row table seeded by one batch
+        table, planes = make(GATE_ROWS)
+        run_upsert(upsert, table, planes, *stream(table, batches[0]), True)
+        words, scan = stream(table, batches[4])
+        over = flags(table, planes, words, scan, 0, 7)
+        start = [None if x is None else x.clone() for x in planes]
+        flag.fill_(7)
+        got = run_upsert(upsert, table, planes, words, scan, False, flag)
+        over_err = max_abs_err([*((a, b) for a, b in zip(planes, start)
+                                  if a is not None),
+                                (got[0], 0 * got[0]), (got[1], 0 * got[1])])
+        dropped = int(run_upsert(upsert_plain, table, start, words, scan,
+                                 False)[1][0])
+        del table, planes, start
+        torch.cuda.empty_cache()
+
+        row["max_abs_err"] = err = max(
+            abs(a - b) for a, b in (fits, sticky, over))
+        print(f"phase 2 (gate, k={k}): {name}: gate after the check "
+              f"(kernel, plain): batch that fits {fits}, behind a closed "
+              f"gate {sticky}, batch that overflows a {GATE_ROWS:,}-row table "
+              f"{over} (the ungated plain version drops {dropped:,} "
+              f"inserts there); K4/K5 behind the gate: open equal to "
+              f"ungated plain {fits_err}, closed unchanged {sticky_err} "
+              f"and {over_err} (max_abs_err); work: {detail}")
+        if err or fits != [0, 0] or sticky != [3, 3] or over != [7, 7] \
+                or dropped == 0 or fits_err or sticky_err or over_err:
+            raise AssertionError(f"{name}: the gate disagrees with the "
+                                 "plain version")
+        out[name] = row
+        report({name: row}, f"phase 2 (gate, k={k})")
+    del batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_golden(k: int, case: str, table: str = "auto"):
     from nomalise_kmers_multi_large_torch import cli
 
@@ -956,17 +1173,21 @@ def kept_ids(out: str, k: int) -> np.ndarray:
     return (rec[:, 1:8].astype(np.int64) - 48) @ 10 ** np.arange(6, -1, -1)
 
 
-def require_launches(label: str, k: int) -> dict:
+def require_launches(label: str, k: int, gated: bool = True) -> dict:
     """The launch counts since the last reset; fails unless every kernel of
-    the k path launched."""
+    the k path launched. Not `gated` (Mode B's row-sharded table): the
+    check pass must not have launched, and the others must."""
     from nomalise_kmers_multi_large_torch import backend
 
     launches = backend.launches()
-    path = PATH_KERNELS[15 if k <= 15 else 25]
-    missing = [n for n in path if launches[n] == 0]
-    if missing:
+    kk = 15 if k <= 15 else 25
+    path = PATH_KERNELS[kk]
+    gate = GATE_KERNELS[kk]
+    missing = [n for n in path if launches[n] == 0 and (gated or n != gate)]
+    if missing or (not gated and launches[gate]):
         raise AssertionError(f"{label}: kernels never launched on the k={k} "
-                             f"path: {missing}")
+                             f"path: {missing}; check passes {launches[gate]}"
+                             f" ({'gated' if gated else 'ungated'})")
     return {n: launches[n] for n in path}
 
 
@@ -982,10 +1203,13 @@ def phase_main(dev, k: int, files, check_files, label: str):
 
     backend.reset_launches()
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     norm, rep, out, first = run_engine(k, dev, files, "main")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     rows0 = first.rows
     launches = require_launches(label, k)
     t = norm.tables[0]
@@ -1000,6 +1224,10 @@ def phase_main(dev, k: int, files, check_files, label: str):
           f"{rows0:,} to {t.rows:,} rows x {t.lanes} lanes = "
           f"{t.rows * t.lanes * slot_bytes:,} bytes of fingerprint and count "
           f"planes; launches {launches}")
+    print(f"{label}: k={k}: peak device memory of the run "
+          f"(torch.cuda.max_memory_allocated()) {peak:,} bytes = "
+          f"{peak / 2 ** 30:.3f} GiB, of which {before:,} bytes were "
+          f"allocated before it")
     if rep.total_processed != PAIRS or \
             rep.total_printed + rep.total_skipped != PAIRS:
         raise AssertionError(f"{label} totals do not add up")
@@ -1057,7 +1285,7 @@ def phase_profile(dev, k: int, files, want: tuple, launches: dict,
         events = [(e.name, e.time_range.start, e.time_range.end)
                   for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        seen = {name: sum(f"::{DEVICE_FUNCTIONS[name]}(" in e[0]
+        seen = {name: sum(f"::{KERNEL_FUNCTIONS[name]}(" in e[0]
                           for e in events) for name in launches}
         if seen == launches:
             break
@@ -1071,7 +1299,7 @@ def phase_profile(dev, k: int, files, want: tuple, launches: dict,
           f"unprofiled {want}: wall {wall:.3f} s, device busy {busy:.3f} s, "
           f"idle {1 - busy / wall:.1%} ({len(events):,} device events)")
     ranked = by_name(events)
-    tags = [f"::{DEVICE_FUNCTIONS[n]}(" for n in launches]
+    tags = [f"::{KERNEL_FUNCTIONS[n]}(" for n in launches]
     for name, us, count in ranked[:15] + [
             x for x in ranked[15:] if any(t in x[0] for t in tags)]:
         print(f"{label}:   {us / 1e3:9.3f} ms  {count:6d} x "
@@ -1682,7 +1910,8 @@ def phase_mesh(dev, files, check_files, ref: dict, want: dict, walls: dict,
                                            devices=devices)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = require_launches(f"phase 12 (Mode B, {sub})", k)
+        launches = require_launches(f"phase 12 (Mode B, {sub})", k,
+                                    gated=False)
         t, st = norm.tables[0], norm.states[0]
         digests, on_card = output_digests(out), _on_card(st)
         shutil.rmtree(out)
@@ -1787,7 +2016,7 @@ def phase_mesh(dev, files, check_files, ref: dict, want: dict, walls: dict,
     with open(os.path.join(trace, traces[0])) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-    seen = {n: sum(f"::{DEVICE_FUNCTIONS[n]}(" in e for e in kernels)
+    seen = {n: sum(f"::{KERNEL_FUNCTIONS[n]}(" in e for e in kernels)
             for n in PATH_KERNELS[15]}
     gold = os.path.join(ROOT, "tests", "golden", "fasta_in_paired_k15")
     same = all(open(os.path.join(out, n), "rb").read()
@@ -2058,6 +2287,8 @@ def main() -> int:
               np.random.default_rng(SEED + 7), dev)
         phase("2 (row shards)", phase_kernels_row_shard,
               np.random.default_rng(SEED + 10), dev)
+        timing.update(phase("2 (gate)", phase_gate,
+                            np.random.default_rng(SEED + 11), dev))
 
         def hashed_kernel():
             timing.update(phase("11 (kernel)", phase_hashed_kernel_apart))

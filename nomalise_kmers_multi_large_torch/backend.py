@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into a shared library of its own, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds); one source may hold several
-kernels (segscan.cu holds the narrow and the wide scan). Builds land in
+kernels (segscan.cu holds the narrow and the wide scan, bucket.cu K4 and
+its check pass). Builds land in
 ``_build/<hash>/`` beside this file, keyed by a hash of the sources and
 flags; the first kernel call of a process compiles every stale source, all
 of them in parallel.
@@ -33,9 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 KERNEL_SOURCES = {
     "encode_keys": "encode.cu",
     "rank_cand_scan": "segscan.cu",
+    "bucket_overflow_check": "bucket.cu",
     "bucket_batch": "bucket.cu",
     "encode_keys_wide": "encode_wide.cu",
     "rank_cand_scan_wide": "segscan.cu",
+    "bucket_overflow_check_wide": "bucket_wide.cu",
     "bucket_batch_wide": "bucket_wide.cu",
     "hashed_insert": "hashed.cu",
 }

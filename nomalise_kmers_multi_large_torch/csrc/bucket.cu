@@ -72,22 +72,34 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                         int32_t* __restrict__ fp, int32_t* __restrict__ counts,
                         int lanes, int depth, bool seed,
                         int32_t* __restrict__ high, int n_reads,
-                        int32_t* __restrict__ stats) {
+                        int32_t* __restrict__ stats,
+                        const int32_t* __restrict__ gate) {
   __shared__ int32_t s_ring[kWarpsPerBlock][32][kRingStride];
   nkm_bucket::upsert_slice(s, p2, p3, n, fp, nullptr, counts, lanes, depth,
-                           seed, high, n_reads, stats, s_ring[threadIdx.x >> 5],
-                           nullptr);
+                           seed, high, n_reads, stats, gate,
+                           s_ring[threadIdx.x >> 5], nullptr);
+}
+
+__global__ void __launch_bounds__(nkm_bucket::kCheckThreads)
+    bucket_overflow_check_kernel(NarrowStream s,
+                                 const int32_t* __restrict__ p2,
+                                 const int32_t* __restrict__ p3, int64_t n,
+                                 const int32_t* __restrict__ fp, int lanes,
+                                 int32_t* gate, int32_t ticket) {
+  nkm_bucket::overflow_check(s, p2, p3, n, fp, nullptr, lanes, gate, ticket);
 }
 
 }  // namespace
 
 // fp, counts: int32 [rows, lanes], updated in place; high: int32 [n_reads]
-// and stats: int32 [2] (dropped, inserted), both zeroed by the caller.
+// and stats: int32 [2] (dropped, inserted), both zeroed by the caller; gate:
+// int32 [1] or null (ungated): nothing is written while it is nonzero.
 NKM_EXPORT int nkm_bucket_batch(const void* skey, const void* p2,
                                 const void* p3, long long n, void* fp,
                                 void* counts, int rows, int lanes, int fp_bits,
                                 int depth, int seed, void* high, int n_reads,
-                                void* stats, int device, void* stream) {
+                                void* stats, const void* gate, int device,
+                                void* stream) {
   int err = nkm_select_device(device);
   if (err) return err;
   if (lanes % 32 != 0 || lanes > kMaxLanes || fp_bits < 1 || fp_bits > 16) {
@@ -103,7 +115,37 @@ NKM_EXPORT int nkm_bucket_batch(const void* skey, const void* p2,
         s, static_cast<const int32_t*>(p2), static_cast<const int32_t*>(p3), n,
         static_cast<int32_t*>(fp), static_cast<int32_t*>(counts), lanes,
         depth, seed != 0, static_cast<int32_t*>(high), n_reads,
-        static_cast<int32_t*>(stats));
+        static_cast<int32_t*>(stats), static_cast<const int32_t*>(gate));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The check pass of a gated batch on the same sorted stream, before
+// nkm_bucket_batch: sets *gate = ticket (ticket > 0) when the batch would
+// drop an insert into fp (int32 [rows, lanes], only read); nothing while
+// *gate != 0.
+NKM_EXPORT int nkm_bucket_overflow_check(const void* skey, const void* p2,
+                                         const void* p3, long long n,
+                                         const void* fp, int rows, int lanes,
+                                         int fp_bits, void* gate, int ticket,
+                                         int device, void* stream) {
+  int err = nkm_select_device(device);
+  if (err) return err;
+  if (lanes % 32 != 0 || lanes > kMaxLanes || fp_bits < 1 || fp_bits > 16 ||
+      ticket <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (n > 0) {
+    const int64_t blocks =
+        (n + nkm_bucket::kCheckThreads - 1) / nkm_bucket::kCheckThreads;
+    const NarrowStream s{static_cast<const uint32_t*>(skey),
+                         static_cast<uint32_t>(rows), fp_bits};
+    bucket_overflow_check_kernel<<<static_cast<unsigned>(blocks),
+                                   nkm_bucket::kCheckThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        s, static_cast<const int32_t*>(p2), static_cast<const int32_t*>(p3), n,
+        static_cast<const int32_t*>(fp), lanes, static_cast<int32_t*>(gate),
+        ticket);
   }
   return static_cast<int>(cudaGetLastError());
 }

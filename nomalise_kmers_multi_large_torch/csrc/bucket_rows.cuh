@@ -16,6 +16,11 @@
 // slice. The first spill group is loaded with the slice, so a row that ends
 // in the next slice costs no extra round trip.
 //
+// Gate: with `gate` non-null, the warp writes nothing (no plane, count, tally
+// or stat) while *gate != 0. The check pass (overflow_check, below) runs
+// before the upsert on the same stream and sets the gate when the batch would
+// drop an insert, so a gated batch inserts everything or nothing.
+//
 // Memory (the bound): per warp, the stream words of two slices; lanes 0..31
 // of plane A (and B) of each owned row, as one cp.async batch into a
 // shared-memory ring, so the warp waits on ONE round trip for all its rows;
@@ -60,7 +65,9 @@ __device__ __forceinline__ void upsert_slice(
     int64_t n, int32_t* __restrict__ fpa, int32_t* __restrict__ fpb,
     int32_t* __restrict__ counts, int lanes, int depth, bool seed,
     int32_t* __restrict__ high, int n_reads, int32_t* __restrict__ stats,
-    int32_t (*ring_a)[kRingStride], int32_t (*ring_b)[kRingStride]) {
+    const int32_t* __restrict__ gate, int32_t (*ring_a)[kRingStride],
+    int32_t (*ring_b)[kRingStride]) {
+  if (gate != nullptr && *gate != 0) return;  // the batch is held back
   const int lane = threadIdx.x & 31;
   const unsigned lt_mask = (1u << lane) - 1u;
   const unsigned le_mask = lt_mask | (1u << lane);
@@ -253,6 +260,76 @@ __device__ __forceinline__ void upsert_slice(
     if (n_dropped) atomicAdd(&stats[0], n_dropped);
     if (n_inserted) atomicAdd(&stats[1], n_inserted);
   }
+}
+
+constexpr int kCheckThreads = 256;
+constexpr int kMaxRank = 65535;  // csrc/segscan.cu clamps ranks here
+
+// The check pass of a gated batch: sets *gate = ticket when upserting the
+// sorted stream would drop an insert, that is when some row's occupancy
+// plus the number of the batch's codes of the row that match none of its
+// occupied lanes exceeds `lanes` (upsert_slice's drop condition: a new code
+// takes lane occ + the new codes of its row before it). Does nothing while
+// *gate != 0, so the first closing ticket stays.
+//
+// One thread per element; only the last element of each row works. Its cand
+// (p3) + 1 is the row's count of distinct codes d (clamped above 128 >=
+// lanes, which then drops for sure). Rows are left-packed, so lane
+// `lanes - d` empty means occ + d <= lanes: nothing of the row can drop, and
+// that one 4-byte read settles almost every row. Otherwise the thread counts
+// the occupied lanes, then walks the row's runs from last to first (a run's
+// head lies rank - 1 elements before its last one) and matches each code
+// against the occupied lanes.
+//
+// Bound on the H100: memory. Every element's sort words are read once
+// (to find the row ends), plus per touched row its cand and one lane of
+// plane A; the walk of a nearly full row reads its occupied lanes for each
+// of its codes, which the growth headroom keeps rare.
+template <class S>
+__device__ __forceinline__ void overflow_check(
+    const S& s, const int32_t* __restrict__ p2,
+    const int32_t* __restrict__ p3, int64_t n,
+    const int32_t* __restrict__ fpa, const int32_t* __restrict__ fpb,
+    int lanes, int32_t* gate, int32_t ticket) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kCheckThreads + threadIdx.x;
+  if (i >= n || *gate != 0) return;
+  uint32_t a, b, na, nb;
+  s.load(i, n, a, b);
+  if (!s.valid(a, b)) return;
+  s.load(i + 1, n, na, nb);
+  const uint32_t row = s.row(a);
+  if (s.valid(na, nb) && s.row(na) == row) return;  // not the row's last
+  const int distinct = p3[i] + 1;
+  if (distinct > lanes) {
+    *gate = ticket;
+    return;
+  }
+  const int64_t off = static_cast<int64_t>(row) * lanes;
+  if (fpa[off + lanes - distinct] == 0) return;  // occ <= lanes - distinct
+  int occ = lanes - distinct + 1;
+  while (occ < lanes && fpa[off + occ] != 0) ++occ;
+  int matched = 0;
+  for (int64_t j = i; j >= 0; --j) {  // j: the last element of a run
+    uint32_t ja, jb;
+    s.load(j, n, ja, jb);
+    if (!s.valid(ja, jb) || s.row(ja) != row) break;
+    int rank = p2[j] & 0xFFFF;
+    while (rank == kMaxRank) {  // a clamped rank: step back inside the run
+      j -= kMaxRank - 1;
+      rank = p2[j] & 0xFFFF;
+    }
+    j -= rank - 1;  // the run's head
+    const int32_t fa = s.fa(ja);
+    const int32_t fb = fpb != nullptr ? s.fb(jb) : 0;
+    for (int l = 0; l < occ; ++l) {
+      if (fpa[off + l] == fa && (fpb == nullptr || fpb[off + l] == fb)) {
+        ++matched;
+        break;
+      }
+    }
+  }
+  if (occ + distinct - matched > lanes) *gate = ticket;
 }
 
 }  // namespace nkm_bucket

@@ -71,35 +71,53 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                              int32_t* __restrict__ fpb,
                              int32_t* __restrict__ counts, int lanes,
                              int depth, bool seed, int32_t* __restrict__ high,
-                             int n_reads, int32_t* __restrict__ stats) {
+                             int n_reads, int32_t* __restrict__ stats,
+                             const int32_t* __restrict__ gate) {
   __shared__ int32_t s_ring_a[kWarpsPerBlock][32][kRingStride];
   __shared__ int32_t s_ring_b[kWarpsPerBlock][32][kRingStride];
   const int warp = threadIdx.x >> 5;
   nkm_bucket::upsert_slice(s, p2, p3, n, fpa, fpb, counts, lanes, depth, seed,
-                           high, n_reads, stats, s_ring_a[warp],
+                           high, n_reads, stats, gate, s_ring_a[warp],
                            s_ring_b[warp]);
+}
+
+__global__ void __launch_bounds__(nkm_bucket::kCheckThreads)
+    bucket_overflow_check_wide_kernel(WideStream s,
+                                      const int32_t* __restrict__ p2,
+                                      const int32_t* __restrict__ p3,
+                                      int64_t n,
+                                      const int32_t* __restrict__ fpa,
+                                      const int32_t* __restrict__ fpb,
+                                      int lanes, int32_t* gate,
+                                      int32_t ticket) {
+  nkm_bucket::overflow_check(s, p2, p3, n, fpa, fpb, lanes, gate, ticket);
+}
+
+bool valid_shape(int rows, int lanes, int row_shift) {
+  return lanes % 32 == 0 && lanes <= kMaxLanes && row_shift >= 1 &&
+         row_shift <= 31 && rows >= 1 && (rows & (rows - 1)) == 0 &&
+         (static_cast<int64_t>(rows) << row_shift) <= (int64_t{1} << 32);
 }
 
 }  // namespace
 
 // fpa, counts (and fpb, null at k = 16): int32 [rows, lanes], updated in
 // place; rows a power of two <= 2^(32 - row_shift): a whole table, or a
-// row shard of one whose stream holds only rebased rows below `rows`. high: int32 [n_reads] and stats: int32
-// [2] (dropped, inserted), both zeroed by the caller.
+// row shard of one whose stream holds only rebased rows below `rows`.
+// high: int32 [n_reads] and stats: int32 [2] (dropped, inserted), both
+// zeroed by the caller; gate: int32 [1] or null (ungated): nothing is
+// written while it is nonzero.
 NKM_EXPORT int nkm_bucket_batch_wide(const void* sk1, const void* sk2,
                                      const void* p2, const void* p3,
                                      long long n, void* fpa, void* fpb,
                                      void* counts, int rows, int lanes,
                                      int row_shift, int depth, int seed,
                                      void* high, int n_reads, void* stats,
-                                     int device, void* stream) {
+                                     const void* gate, int device,
+                                     void* stream) {
   int err = nkm_select_device(device);
   if (err) return err;
-  if (lanes % 32 != 0 || lanes > kMaxLanes || row_shift < 1 ||
-      row_shift > 31 || rows < 1 || (rows & (rows - 1)) != 0 ||
-      (static_cast<int64_t>(rows) << row_shift) > (int64_t{1} << 32)) {
-    return cudaErrorInvalidValue;
-  }
+  if (!valid_shape(rows, lanes, row_shift)) return cudaErrorInvalidValue;
   if (n > 0) {
     const int64_t warps = (n + 31) / 32;
     const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
@@ -111,7 +129,36 @@ NKM_EXPORT int nkm_bucket_batch_wide(const void* sk1, const void* sk2,
         s, static_cast<const int32_t*>(p2), static_cast<const int32_t*>(p3), n,
         static_cast<int32_t*>(fpa), static_cast<int32_t*>(fpb),
         static_cast<int32_t*>(counts), lanes, depth, seed != 0,
-        static_cast<int32_t*>(high), n_reads, static_cast<int32_t*>(stats));
+        static_cast<int32_t*>(high), n_reads, static_cast<int32_t*>(stats),
+        static_cast<const int32_t*>(gate));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The check pass of a gated wide batch on the same sorted stream, before
+// nkm_bucket_batch_wide: sets *gate = ticket (ticket > 0) when the batch
+// would drop an insert into fpa/fpb (only read; fpb null at k = 16);
+// nothing while *gate != 0.
+NKM_EXPORT int nkm_bucket_overflow_check_wide(
+    const void* sk1, const void* sk2, const void* p2, const void* p3,
+    long long n, const void* fpa, const void* fpb, int rows, int lanes,
+    int row_shift, void* gate, int ticket, int device, void* stream) {
+  int err = nkm_select_device(device);
+  if (err) return err;
+  if (!valid_shape(rows, lanes, row_shift) || ticket <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (n > 0) {
+    const int64_t blocks =
+        (n + nkm_bucket::kCheckThreads - 1) / nkm_bucket::kCheckThreads;
+    const WideStream s{static_cast<const uint32_t*>(sk1),
+                       static_cast<const uint32_t*>(sk2), row_shift};
+    bucket_overflow_check_wide_kernel<<<static_cast<unsigned>(blocks),
+                                        nkm_bucket::kCheckThreads, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+        s, static_cast<const int32_t*>(p2), static_cast<const int32_t*>(p3), n,
+        static_cast<const int32_t*>(fpa), static_cast<const int32_t*>(fpb),
+        lanes, static_cast<int32_t*>(gate), ticket);
   }
   return static_cast<int>(cudaGetLastError());
 }

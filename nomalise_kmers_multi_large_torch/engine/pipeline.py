@@ -16,13 +16,19 @@ while the device runs. Around that loop:
 - growth (bucket and hashed tables): each shard's live occupancy
   (``state.used``, counted in-kernel) is mirrored to the host at every
   retire, and the table doubles when it crosses the headroom;
-- overflow grow-and-replay: a retire that sees new dropped inserts (a full
-  bucket row, a code that found no free slot in 64 probes) discards the
-  dispatch's results, grows the table from a copy taken before that
-  dispatch, and replays the batches on it;
+- overflow grow-and-replay: a batch that would drop an insert (a full
+  bucket row, a code that found no free slot in 64 probes) is grown past
+  and replayed. A one-device bucket table that can still grow (Mode A's
+  shards too) runs every batch gated (ops/bucket_kernel.py Gate): a check
+  pass closes the shard's gate before the upsert of a batch that would
+  drop, and nothing is written from that batch on until the retire that
+  sees the gate closed grows the untouched state and replays, so no copy of
+  the table is ever taken. The hashed table and Mode B's row-sharded bucket
+  table still copy the state before each dispatch, and a retire that sees
+  new drops grows that copy and replays on it;
 - checkpoints (``--checkpoint-every``, ``--resume``): a snapshot is taken
   only after a drain, when nothing is staged or in flight, so the table
-  describes exactly the records counted and no replay snapshot is pending;
+  describes exactly the records counted and no replay is pending;
 - the debug tiers: per-record PRINTED/SKIPPED lines (> 1), per-upsert lines
   from a host shadow table (> 2), the batch round-trip self-check (>= 3)
   and the raw record dump (> 3; above 4 as 4).
@@ -39,7 +45,7 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -68,6 +74,7 @@ from nomalise_kmers_multi_large_torch.io.writer import (
     output_filename,
 )
 from nomalise_kmers_multi_large_torch.ops import codec
+from nomalise_kmers_multi_large_torch.ops.bucket_kernel import Gate
 from nomalise_kmers_multi_large_torch.ops.codec import decode_codes
 from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
     encode_keys, encode_keys_wide,
@@ -75,7 +82,9 @@ from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
 from nomalise_kmers_multi_large_torch.ops.mix import (
     feistel_words_np, mix32_np,
 )
-from nomalise_kmers_multi_large_torch.table import TableState, make_table
+from nomalise_kmers_multi_large_torch.table import (
+    BucketTable, TableState, make_table,
+)
 from nomalise_kmers_multi_large_torch.utils.prefetch import PrefetchIterator
 from nomalise_kmers_multi_large_torch.utils.profiling import (
     StageTimer, device_trace,
@@ -98,6 +107,18 @@ def _copy(state: TableState, device=None) -> TableState:
         return x.to(device or x.device, copy=True)
 
     return TableState(*(copy(x) for x in state))
+
+
+class _Dispatch(NamedTuple):
+    """One staged group in flight, and what its retire needs."""
+    q: list             # the staged (batch, bases, lengths, rec_valid)
+    shard: int
+    result: tuple       # (keep, StepStats, ReadTallies) on the device
+    table: object       # the descriptor it ran on
+    pre: Optional[TableState]  # the state before it (ungated replay source)
+    gate: Optional[Gate]       # its gate (batch g holds ticket + g)
+    overflow: torch.Tensor     # state.overflow after it
+    used: torch.Tensor         # state.used after it
 
 
 def _slice_batch(batch: RecordBatch, lo: int, hi: int) -> RecordBatch:
@@ -147,6 +168,10 @@ class Normalizer:
         self._overflow_seen = [0] * cfg.shards
         #: shards rewound and regrown by a replay during the current flush
         self._replayed_shards: set[int] = set()
+        #: each gated shard's gate flag (int32 [1] on its device), made at
+        #: its first gated dispatch, and its next gate ticket
+        self._gates: list[Optional[torch.Tensor]] = [None] * cfg.shards
+        self._next_ticket = [1] * cfg.shards
         #: --debug > 2: one exact host shadow table per shard
         self._shadows = ([UpsertShadow(cfg.ksize, cfg.canonical)
                           for _ in range(cfg.shards)]
@@ -410,19 +435,29 @@ class Normalizer:
             np.uint32)
 
     def _seed_checked(self, bases, lengths):
-        """One seed batch, replayed on a grown table if it dropped inserts.
+        """One seed batch, replayed on a grown table if it would drop
+        inserts.
 
         The live-occupancy mirror can let one batch bring more new codes
         than the rows hold (the first seed batch of a large file does, into
         the default table); the reference package keeps those drops. The
         port recovers them as the stream does (_grow_and_replay), at the
         cost of one sync per seed batch."""
-        def dispatch():
+        def dispatch(gate=None):
             # growth swaps the descriptor; re-resolve the step
             step = self._get_step(0, paired=False)
-            self.states[0] = step.seed_step(self.states[0], bases, lengths)
+            kw = {} if gate is None else {"gate": gate}
+            self.states[0] = step.seed_step(self.states[0], bases, lengths,
+                                            **kw)
 
-        table, pre = self.tables[0], self._replay_snapshot(0)
+        table, gate = self.tables[0], self._take_gate(0, 1)
+        if gate is not None:
+            dispatch(gate)
+            if gate.ticket and int(gate.flag):
+                self._regrow_and_replay(0, table, 1,
+                                        lambda first, g: dispatch(g))
+            return
+        pre = self._replay_snapshot(0)
         dispatch()
         if pre is None:
             return
@@ -547,10 +582,10 @@ class Normalizer:
                 entries.append(self._dispatch(shard, q, paired))
             done = self._retire_flush(pending, paired)
             replayed, self._replayed_shards = self._replayed_shards, set()
-            # a dispatch above consumed a state that a replay has just
-            # replaced: redo it on the replayed table
-            pending = [self._dispatch(e[1], e[0], paired) if e[1] in replayed
-                       else e for e in entries]
+            # a dispatch above ran behind a closed gate, or consumed a state
+            # that a replay has just replaced: redo it on the replayed table
+            pending = [self._dispatch(e.shard, e.q, paired)
+                       if e.shard in replayed else e for e in entries]
             return done
 
         def drain() -> int:
@@ -622,16 +657,19 @@ class Normalizer:
         cuts it among the devices instead (parallel/engine.py)."""
         return [(rr % self.cfg.shards, (batch, bases, lengths, rec_valid))]
 
-    def _dispatch(self, shard: int, q: list, paired: bool):
+    def _dispatch(self, shard: int, q: list, paired: bool) -> _Dispatch:
         """One staged-group dispatch, bracketed by what the overflow
-        grow-and-replay protocol needs: the descriptor and a copy of the
-        state before it, and the overflow/used counters after."""
+        grow-and-replay protocol needs: the descriptor, the gate (a gated
+        shard) or a copy of the state before it (the others), and the
+        overflow/used counters after."""
         table = self.tables[shard]
-        pre = self._replay_snapshot(shard)
+        gate = self._take_gate(shard, len(q))
+        pre = None if gate is not None else self._replay_snapshot(shard)
         with self.timer.stage("dispatch"):
-            result = self._dispatch_queue(shard, q, paired)
+            result = self._dispatch_queue(shard, q, paired, gate)
         post = self.states[shard]
-        return (q, shard, result, table, pre, post.overflow, post.used)
+        return _Dispatch(q, shard, result, table, pre, gate, post.overflow,
+                         post.used)
 
     # ------------------------------------------------------------------
     def _resume(self, ckpt: CheckpointManager):
@@ -705,10 +743,32 @@ class Normalizer:
                   shadows=self._shadows)
 
     # ------------------------------------------------------------------
+    def _take_gate(self, shard: int, n: int) -> Optional[Gate]:
+        """The gate of a dispatch of n batches on `shard`, holding the first
+        of n fresh tickets; None where the shard's table is not run gated.
+        Only a one-device bucket table that can still grow is: one that
+        cannot keeps its drops in overflow, as the JAX package does, and
+        Mode B's row-sharded bucket table and the hashed table replay from
+        a snapshot (_replay_snapshot). A table that reached its ceiling
+        after gated dispatches gets ticket 0: no check, but a gate that an
+        earlier batch closed still holds it back."""
+        t = self.tables[shard]
+        if not isinstance(t, BucketTable) or \
+                (not t.can_grow and self._gates[shard] is None):
+            return None
+        if self._gates[shard] is None:
+            self._gates[shard] = torch.zeros(1, dtype=torch.int32,
+                                             device=t.device)
+        if not t.can_grow:
+            return Gate(self._gates[shard], 0)
+        ticket = self._next_ticket[shard]
+        self._next_ticket[shard] += n
+        return Gate(self._gates[shard], ticket)
+
     def _replay_snapshot(self, shard: int) -> Optional[TableState]:
-        """Copy of the shard state before a dispatch, the replay source: the
-        step updates the planes in place. Skipped when the table cannot
-        grow, since no replay could then apply."""
+        """Copy of the shard state before an ungated dispatch, the replay
+        source: the step updates the planes in place. Skipped when the
+        table cannot grow, since no replay could then apply."""
         if not self.tables[shard].can_grow:
             return None
         return _copy(self.states[shard])
@@ -719,31 +779,59 @@ class Normalizer:
         return sum(self._retire(*part) for e in entries
                    for part in self._checked(e, paired))
 
-    def _checked(self, entry, paired: bool) -> list:
-        """One dispatch's results, after checking its overflow counter
-        against the host mirror: growth there means a row filled and the
-        kernel dropped inserts, so the results are discarded and the group
-        replayed on a grown table (_grow_and_replay). Returns the arguments
-        of _retire for each of its batches."""
-        q, shard, result, table, pre, post_of, post_used = entry
+    def _checked(self, e: _Dispatch, paired: bool) -> list:
+        """One dispatch's results, after checking for a batch that would
+        have dropped inserts, which are grown past and replayed. Gated: the
+        gate names the first batch held back, if this dispatch closed it;
+        the batches before it stand (_regrow_and_replay). Ungated: the
+        overflow counter against the host mirror; growth there means a row
+        filled and the kernel dropped inserts, so the whole group's results
+        are discarded (_grow_and_replay). Returns the arguments of _retire
+        for each of its batches."""
+        shard, batches = e.shard, [x[0] for x in e.q]
+        grouped = len(e.q) > 1
+        if e.gate is not None and e.gate.ticket:
+            with self.timer.stage("device_wait"):
+                # first sync on this dispatch
+                held = int(e.gate.flag) - e.gate.ticket
+            if not 0 <= held < len(e.q):  # open, or closed behind it
+                self._used_bound[shard] = float(int(e.used))
+                return self._group_parts(batches, shard, grouped, *e.result)
+            parts = self._group_parts(batches[:held], shard, grouped,
+                                      *e.result)
+            rest = e.q[held:]
+            for first, n, grp, result in self._regrow_and_replay(
+                    shard, e.table, len(rest),
+                    lambda first, gate: self._dispatch_queue(
+                        shard, rest[first:], paired, gate)):
+                parts += self._group_parts(
+                    [x[0] for x in rest[first:first + n]], shard, grp,
+                    *result)
+            # the dispatch in flight ran behind the closed gate
+            self._replayed_shards.add(shard)
+            return parts
         with self.timer.stage("device_wait"):
             # first sync on this dispatch
-            of_post = int(post_of)
-        if pre is not None and of_post > self._overflow_seen[shard]:
+            of_post = int(e.overflow)
+        result = e.result
+        if e.pre is not None and of_post > self._overflow_seen[shard]:
             result = self._grow_and_replay(
-                shard, table, pre, of_post,
-                lambda: self._dispatch_queue(shard, q, paired))
+                shard, e.table, e.pre, of_post,
+                lambda: self._dispatch_queue(shard, e.q, paired))
             # the dispatch in flight consumed the state just replaced
             self._replayed_shards.add(shard)
         else:
             self._overflow_seen[shard] = of_post
-            self._used_bound[shard] = float(int(post_used))
-        return self._group_parts([x[0] for x in q], shard, *result)
+            self._used_bound[shard] = float(int(e.used))
+        return self._group_parts(batches, shard, grouped, *result)
 
     def _grow_and_replay(self, shard: int, table, pre_state: TableState,
                          of_post: int, dispatch):
-        """A dispatch dropped inserts. Its results are discarded,
-        the table grows from the state before the dispatch, and
+        """An ungated dispatch dropped inserts: the tables that still copy
+        their state before each dispatch (the hashed table, Mode B's
+        row-sharded bucket table; a one-device bucket table that can grow
+        takes no copy, see _regrow_and_replay). The dispatch's results are
+        discarded, the table grows from that copy, `pre_state`, and
         `dispatch()` replays the same batches on it, growing again from
         that state until the replay drops nothing or the table cannot grow.
         Returns the replay's result.
@@ -779,27 +867,75 @@ class Normalizer:
         self._used_bound[shard] = float(int(self.states[shard].used))
         return result
 
-    def _dispatch_queue(self, shard: int, q: list, paired: bool):
+    def _regrow_and_replay(self, shard: int, table, n: int,
+                           dispatch) -> list:
+        """A gated dispatch on `table` held back n batches: the gate closed
+        before the first of them would have dropped an insert, and it held
+        back every dispatch queued behind them, so the shard's state is as
+        it was before them (grown since, perhaps, by _maybe_grow from that
+        same untouched state) and no copy is needed. The state grows to
+        twice `table`'s capacity unless it is there already, the gate
+        reopens and `dispatch(first, gate)` replays batches first..n-1. A
+        replay held back at a batch keeps the batches before it, grows once
+        more and replays the rest; a table that can no longer grow runs the
+        rest honour-only and keeps their drops. Returns [(first, count,
+        grouped, result)]: each replay's result, how many of its batches
+        stand and whether it was a group (step_many)."""
+        print(
+            f"Thread {shard}: table row overflow (a batch would drop "
+            f"inserts): growing from {table.capacity:,} slots and replaying "
+            f"the batch group", file=sys.stderr,
+        )
+        out, first, target = [], 0, 2 * table.capacity
+        while first < n:
+            t = self.tables[shard]
+            while t.can_grow and t.capacity < target:
+                # the held-back state grows in place of itself: its old
+                # planes go as soon as the new ones exist
+                t, self.states[shard] = t.grown(self.states[shard])
+                self.tables[shard] = t
+            self._gates[shard].zero_()
+            gate = self._take_gate(shard, n - first)
+            with self.timer.stage("dispatch"):
+                result = dispatch(first, gate)
+            held = n - first
+            if gate is not None and gate.ticket:
+                flag = int(gate.flag)
+                if flag:
+                    held = flag - gate.ticket
+            out.append((first, held, n - first > 1, result))
+            first += held
+            target = 2 * t.capacity
+        self._used_bound[shard] = float(int(self.states[shard].used))
+        return out
+
+    def _dispatch_queue(self, shard: int, q: list, paired: bool,
+                        gate: Optional[Gate] = None):
         """(keep, StepStats, ReadTallies) of a staged group, on the device;
-        a group of G > 1 batches gives them a leading G axis."""
+        a group of G > 1 batches gives them a leading G axis. `gate`: run
+        gated, batch g with ticket gate.ticket + g."""
         step = self._get_step(shard, paired)
+        kw = {} if gate is None else {"gate": gate}
         if len(q) == 1:
             _, bases, lengths, rv = q[0]
             self.states[shard], *result = step.step(
-                self.states[shard], bases, lengths, rv)
+                self.states[shard], bases, lengths, rv, **kw)
         else:
             self.states[shard], *result = step.step_many(
                 self.states[shard], np.stack([x[1] for x in q]),
-                np.stack([x[2] for x in q]), np.stack([x[3] for x in q]))
+                np.stack([x[2] for x in q]), np.stack([x[3] for x in q]),
+                **kw)
         return result
 
-    def _group_parts(self, batches, shard, keep_dev, stats_dev,
+    def _group_parts(self, batches, shard, grouped, keep_dev, stats_dev,
                      tallies_dev) -> list:
-        """The _retire arguments of each batch of one dispatch: a single
-        batch, or a step_many group whose outputs carry a leading G axis.
-        The per-read tallies reach the host only for the --debug > 1
-        lines."""
-        if len(batches) == 1:
+        """The _retire arguments of each of `batches`, the first batches
+        of one dispatch: a single batch, or (`grouped`) a step_many group
+        whose outputs carry a leading G axis. The per-read tallies reach
+        the host only for the --debug > 1 lines."""
+        if not batches:
+            return []
+        if not grouped:
             return [(batches[0], shard, keep_dev, stats_dev, tallies_dev)]
         with self.timer.stage("device_wait"):
             keep = keep_dev.cpu().numpy()

@@ -33,7 +33,7 @@ passed in is consumed (the JAX step donates it likewise).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ from nomalise_kmers_multi_large_torch.models.diginorm import (
     keep_mask_single,
 )
 from nomalise_kmers_multi_large_torch.ops import codec
+from nomalise_kmers_multi_large_torch.ops.bucket_kernel import Gate
 from nomalise_kmers_multi_large_torch.ops.encode_kernel import (
     SENTINEL, encode_keys, encode_keys_wide,
 )
@@ -98,10 +99,11 @@ class BatchStep:
         #: of the encoded keys (the same subset as the reference package)
         self.stride = stride
 
-    def _upsert(self, state: TableState, bases, lengths, seed: bool):
-        """Encode, stride-sample and count one batch on a bucket table.
-        Returns (state', the table's BucketBatchOut, total int32 [R] valid
-        windows per read)."""
+    def _upsert(self, state: TableState, bases, lengths, seed: bool,
+                gate: Optional[Gate] = None):
+        """Encode, stride-sample and count one batch on a bucket table,
+        gated (all or nothing) when `gate` is given. Returns (state', the
+        table's BucketBatchOut, total int32 [R] valid windows per read)."""
         b, ln = _on(bases, self.device), _on(lengths, self.device)
         if self.table.wide:
             words = encode_keys_wide(b, ln, self.k, self.canonical)
@@ -112,17 +114,18 @@ class BatchStep:
         if self.table.wide:
             state, out = self.table.process_batch_keys(
                 state, *words, depth=self.depth, seed=seed,
-                relaxed=self.relaxed)
+                relaxed=self.relaxed, gate=gate)
         else:
             state, out = self.table.process_batch_mixed(
                 state, *words, depth=self.depth, seed=seed,
-                relaxed=self.relaxed)
+                relaxed=self.relaxed, gate=gate)
         # the last word is the validity word: the key, or w2 on the wide path
         total = (words[-1] != SENTINEL).sum(1, dtype=torch.int32)
         return state, out, total
 
     # ------------------------------------------------------------------
-    def step(self, state: TableState, bases, lengths, rec_valid):
+    def step(self, state: TableState, bases, lengths, rec_valid,
+             gate: Optional[Gate] = None):
         """One batch.
 
         Args:
@@ -131,13 +134,17 @@ class BatchStep:
             (paired: fwd0, rev0, fwd1, rev1, ...).
           lengths: int32 [R]; 0 marks an invalid mate/read.
           rec_valid: bool [B] record validity.
+          gate: bucket tables only: run the batch gated (ops/bucket_kernel.py
+            Gate); behind a closed gate it changes nothing in the table and
+            its results mean nothing.
 
         Returns (state', keep bool [B], StepStats, ReadTallies).
         """
         rec_valid = _on(rec_valid, self.device)
         if not isinstance(self.table, BucketTable):
             return self._step_stream(state, bases, lengths, rec_valid)
-        state, out, total = self._upsert(state, bases, lengths, seed=False)
+        state, out, total = self._upsert(state, bases, lengths, seed=False,
+                                         gate=gate)
         return self._classify(state, out.high_per_read, total, rec_valid)
 
     # ------------------------------------------------------------------
@@ -216,13 +223,18 @@ class BatchStep:
         return state, keep, stats, ReadTallies(high=high_per_read,
                                                total=total_per_read)
 
-    def step_many(self, state: TableState, bases, lengths, rec_valid):
+    def step_many(self, state: TableState, bases, lengths, rec_valid,
+                  gate: Optional[Gate] = None):
         """G batches in sequence (leading axis G on every operand), each
-        seeing the previous one's counts. Returns (state', keep [G, B],
+        seeing the previous one's counts; gated, batch g holds ticket
+        gate.ticket + g, so a closed gate names the first batch held back
+        (ticket 0, honour only, stays 0). Returns (state', keep [G, B],
         StepStats of [G], ReadTallies of [G, R])."""
         keeps, stats, tallies = [], [], []
-        for b, ln, rv in zip(bases, lengths, rec_valid):
-            state, keep, st, ta = self.step(state, b, ln, rv)
+        for g, (b, ln, rv) in enumerate(zip(bases, lengths, rec_valid)):
+            kw = {} if gate is None else {"gate": gate._replace(
+                ticket=gate.ticket and gate.ticket + g)}
+            state, keep, st, ta = self.step(state, b, ln, rv, **kw)
             keeps.append(keep)
             stats.append(st)
             tallies.append(ta)
@@ -230,11 +242,14 @@ class BatchStep:
                 StepStats(*(torch.stack(x) for x in zip(*stats))),
                 ReadTallies(*(torch.stack(x) for x in zip(*tallies))))
 
-    def seed_step(self, state: TableState, bases, lengths) -> TableState:
+    def seed_step(self, state: TableState, bases, lengths,
+                  gate: Optional[Gate] = None) -> TableState:
         """Seeding: insert k-mers with count 0. The host pre-filters records
-        to the reference's len > k rule by zeroing their lengths."""
+        to the reference's len > k rule by zeroing their lengths. `gate`
+        as in step."""
         if isinstance(self.table, BucketTable):
-            return self._upsert(state, bases, lengths, seed=True)[0]
+            return self._upsert(state, bases, lengths, seed=True,
+                                gate=gate)[0]
         code, valid = self._encode(bases, lengths)
         stream = sorted_occurrence_stream(code.reshape(-1), valid.reshape(-1))
         return self.table.count_and_update(state, stream, seed=True)[0]

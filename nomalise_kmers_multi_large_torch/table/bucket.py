@@ -12,7 +12,8 @@ State mapping onto TableState:
               wide table (w1 & (2^row_shift - 1)) + 1
   keys2    -> wide table at k > 16 only: int32 [rows, lanes] w2
   used     -> int32 [] occupied slots, kept live from the kernel's inserts
-  overflow -> int32 [] dropped inserts (a full row); nonzero => grow
+  overflow -> int32 [] dropped inserts (a full row); a batch run gated
+              (ops/bucket_kernel.py Gate) that would drop writes nothing
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
-    BucketBatchOut, bucket_batch, bucket_batch_wide,
+    BucketBatchOut, Gate, bucket_batch, bucket_batch_wide,
 )
 from nomalise_kmers_multi_large_torch.ops.mix import unfeistel_np, unmix32_np
 from nomalise_kmers_multi_large_torch.table.base import CountTable, TableState
@@ -49,8 +50,11 @@ def default_rows(k: int, memory_bytes: Optional[int] = None) -> int:
 
 
 #: rows of one _split_rows block: bounds its transients (an int64 lane
-#: index per slot) to 512 MiB whatever the table's size
-_SPLIT_BLOCK_ROWS = 1 << 20
+#: index per slot, 128 MiB, two of them alive while one is replaced, and a
+#: few int32 and bool planes of the block) to about half a GiB whatever the
+#: table's size; the last doubling's peak is the old and new planes plus
+#: these
+_SPLIT_BLOCK_ROWS = 1 << 18
 
 
 def _split_rows(keys: torch.Tensor, counts: torch.Tensor, fb: int,
@@ -135,17 +139,19 @@ class BucketTable(CountTable):
     def process_batch_mixed(self, state: TableState, key: torch.Tensor, *,
                             depth: int, seed: bool = False,
                             relaxed: bool = False,
+                            gate: Optional[Gate] = None,
                             ) -> tuple[TableState, BucketBatchOut]:
         """One whole-batch upsert + classify. `key` is int32 [R, W] in stream
         order (encode_keys output; -1 marks an invalid window). The planes
         of `state` are updated in place; the returned state shares them.
-        `relaxed` sorts on the key alone (bucket_batch)."""
+        `relaxed` sorts on the key alone; `gate` runs the batch gated, all
+        or nothing (bucket_batch)."""
         self._check(state)
         R, W = key.shape
         rid = torch.arange(R * W, device=key.device) // W
         out = bucket_batch(state.keys, state.counts, key.reshape(R * W), rid,
                            fp_bits=self.fp_bits, depth=depth, n_reads=R,
-                           seed=seed, relaxed=relaxed)
+                           seed=seed, relaxed=relaxed, gate=gate)
         new_state = TableState(
             counts=out.counts, keys=out.fp,
             used=state.used + out.inserted,
@@ -185,8 +191,12 @@ class BucketTable(CountTable):
         return type(self)(self.k, rows=rows, lanes=lanes, device=self.device)
 
     def used_count(self, state: TableState, seeded_lo=None) -> int:
-        """Occupied slots (reference ht->used); seeds are real entries."""
-        return int((state.keys != 0).sum())
+        """Occupied slots (reference ht->used); seeds are real entries.
+        Counted by blocks of _SPLIT_BLOCK_ROWS rows: a sum over bools
+        first casts them to int64, 8 bytes a slot of the whole table."""
+        keys = state.keys
+        return int(sum((keys[r:r + _SPLIT_BLOCK_ROWS] != 0).sum()
+                       for r in range(0, keys.shape[0], _SPLIT_BLOCK_ROWS)))
 
     def export(self, state: TableState, seeded_lo=None):
         """(hi, lo, count) of occupied slots in ascending code order."""
@@ -261,19 +271,21 @@ class BucketTableWide(BucketTable):
 
     def process_batch_keys(self, state: TableState, w1: torch.Tensor,
                            w2: torch.Tensor, *, depth: int,
-                           seed: bool = False, relaxed: bool = False
+                           seed: bool = False, relaxed: bool = False,
+                           gate: Optional[Gate] = None,
                            ) -> tuple[TableState, BucketBatchOut]:
         """One whole-batch upsert + classify. `w1`, `w2` are int32 [R, W]
         Feistel sort words in stream order (encode_keys_wide output; the
         pair (-1, -1) marks an invalid window). The planes of `state` are
         updated in place; the returned state shares them. `relaxed` sorts
-        unstably (bucket_batch_wide)."""
+        unstably; `gate` runs the batch gated (bucket_batch_wide)."""
         self._check(state)
         R, W = w1.shape
         out = bucket_batch_wide(state.keys, state.keys2, state.counts,
                                 w1.reshape(R * W), w2.reshape(R * W),
                                 windows_per_read=W, row_shift=self.row_shift,
-                                depth=depth, seed=seed, relaxed=relaxed)
+                                depth=depth, seed=seed, relaxed=relaxed,
+                                gate=gate)
         new_state = TableState(
             counts=out.counts, keys=out.fpA,
             used=state.used + out.inserted,

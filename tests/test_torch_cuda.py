@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from nomalise_kmers_multi_large_torch.ops.bucket_kernel import (
-    bucket_batch, bucket_batch_wide, bucket_upsert, bucket_upsert_plain,
+    Gate, bucket_batch, bucket_batch_wide, bucket_overflow_check,
+    bucket_overflow_check_plain, bucket_overflow_check_wide,
+    bucket_overflow_check_wide_plain, bucket_upsert, bucket_upsert_plain,
     bucket_upsert_wide, bucket_upsert_wide_plain, sort_stream,
     sort_stream_wide,
 )
@@ -381,6 +383,199 @@ def test_bucket_kernel_matches_plain(dev, lanes, seed, case):
     assert int(stats[0]) > 0 and int(stats[1]) > 0
     if not seed:
         assert int(high.sum()) > 0
+
+
+# ----------------------------------------------------------------------
+# the gate: the check kernels, and K4/K5 behind a closed gate
+
+def gate_stream(dev, wide: bool, lanes: int, over: int, rng,
+                long_run: bool = False):
+    """Planes of a 128-row (k = 9) or 512-row (k = 25, wide) table on `dev`
+    whose rows are pre-filled to occupancies from 0 to `lanes`, and a
+    sorted, scanned stream that gives each row its lanes' worth of codes:
+    matched ones (runs of up to 40) and new ones, so that occupancy + new
+    codes equals `lanes` in every row, except in `over` rows, where it is
+    one more. With plane B, a new code shares plane A with an occupied
+    slot. With `long_run`, lane 0 of row 1 (occupancy lanes - 1) is matched
+    70,000 times: a run whose ranks clamp at 65535. Returns (table, fp
+    planes, stream words, p2, p3, n_reads)."""
+    table = (BucketTableWide(25, rows=512, lanes=lanes, device=dev) if wide
+             else BucketTable(9, rows=128, lanes=lanes, device=dev))
+    rows = table.rows
+    fbits = table.row_shift if wide else table.fp_bits
+    fpa = np.zeros((rows, lanes), np.int64)
+    fpb = np.zeros((rows, lanes), np.int64)
+    occ = rng.integers(0, lanes + 1, size=rows)
+    occ[:4] = [0, lanes - 1, lanes, lanes // 2]
+    elems = []  # (row, fa, fb)
+    bad = set(rng.choice(np.arange(4, rows), size=over, replace=False)
+              .tolist()) if over else set()
+    for r in range(rows):
+        fa = rng.permutation(np.unique(rng.integers(
+            1, (1 << fbits) + 1, size=3 * lanes)))[:lanes + 2]
+        fpa[r, :occ[r]] = fa[:occ[r]]
+        if wide:
+            fpb[r, :occ[r]] = rng.integers(0, 1 << 30, size=occ[r])
+        matched = rng.permutation(occ[r])[:rng.integers(0, occ[r] + 1)]
+        for j in matched:
+            elems += [(r, fpa[r, j], fpb[r, j])] * int(rng.integers(1, 41))
+        if long_run and r == 1:
+            elems += [(r, fpa[r, 0], fpb[r, 0])] * 70_000
+        n_new = lanes - occ[r] + (r in bad)
+        for i in range(n_new):
+            if wide and i == 0 and occ[r]:   # plane A shared, plane B new
+                elems.append((r, fpa[r, 0], (fpb[r, 0] + 1) % (1 << 30)))
+            else:
+                elems.append((r, fa[occ[r] + i],
+                              int(rng.integers(0, 1 << 30))))
+    elems = np.array(elems, np.int64)[rng.permutation(len(elems))]
+    n_reads = 64
+    rid = torch.from_numpy(rng.integers(0, n_reads, size=len(elems))).to(dev)
+    w1 = (elems[:, 0] << fbits) | (elems[:, 1] - 1)
+    if wide:
+        sk1, sk2, srid = sort_stream_wide(*_to_dev(dev, w1, elems[:, 2]), 1,
+                                          rid_flat=rid)
+        words = (sk1, sk2)
+        p2, p3 = rank_cand_scan(sk1, srid, fp_bits=0, n_reads=n_reads,
+                                skey2=sk2, row_shift=table.row_shift)
+    else:
+        skey, srid = sort_stream(*_to_dev(dev, w1), rid)
+        words = (skey,)
+        p2, p3 = rank_cand_scan(skey, srid, fp_bits=table.fp_bits,
+                                n_reads=n_reads)
+    planes = _to_dev(dev, fpa, fpb if table.has_plane_b else None) if wide \
+        else _to_dev(dev, fpa)
+    return table, planes, words, p2, p3, n_reads
+
+
+def _check(table, planes, words, p2, p3, gate, plain=False):
+    if table.wide:
+        fn = bucket_overflow_check_wide_plain if plain else \
+            bucket_overflow_check_wide
+        fn(*planes, *words, p2, p3, gate, row_shift=table.row_shift)
+    else:
+        fn = bucket_overflow_check_plain if plain else bucket_overflow_check
+        fn(*planes, *words, p2, p3, gate, fp_bits=table.fp_bits)
+
+
+def _upsert(table, planes, counts, words, p2, p3, n_reads, gate=None,
+            plain=False):
+    kw = dict(depth=3, seed=False, n_reads=n_reads, gate=gate)
+    if table.wide:
+        fn = bucket_upsert_wide_plain if plain else bucket_upsert_wide
+        return fn(*planes, counts, *words, p2, p3, row_shift=table.row_shift,
+                  **kw)
+    fn = bucket_upsert_plain if plain else bucket_upsert
+    return fn(*planes, counts, *words, p2, p3, fp_bits=table.fp_bits, **kw)
+
+
+def check_and_drops(table, planes, words, p2, p3, n_reads):
+    """(the gate's value after the check pass, the ungated upsert's dropped
+    inserts) on copies of the planes: the kernels on CUDA planes, the plain
+    versions on CPU ones."""
+    gate = Gate(torch.zeros(1, dtype=torch.int32, device=planes[0].device),
+                9)
+    counts = torch.zeros_like(planes[0])
+    pl = [None if p is None else p.clone() for p in planes]
+    _check(table, pl, words, p2, p3, gate)
+    _, stats = _upsert(table, pl, counts, words, p2, p3, n_reads)
+    return int(gate.flag), int(stats[0])
+
+
+@pytest.mark.parametrize("long_run", [False, True])
+@pytest.mark.parametrize("over", [0, 1, 3])
+@pytest.mark.parametrize("lanes", [64, 128])
+@pytest.mark.parametrize("wide", [False, True])
+def test_check_kernel_matches_plain(dev, wide, lanes, over, long_run):
+    """Rows at and one past their lanes (gate_stream): the kernel closes
+    the gate exactly when its plain version does and K4/K5 drop; from a
+    closed gate neither changes it."""
+    rng = np.random.default_rng(10 * lanes + over + 7 * wide + long_run)
+    stream = gate_stream(dev, wide, lanes, over, rng, long_run)
+    table, planes, words, p2, p3, n_reads = stream
+    flag, dropped = check_and_drops(*stream)
+    assert dropped == over and flag == (9 if over else 0)
+    for start in (0, 3):
+        got = []
+        for plain in (False, True):
+            gate = Gate(torch.full((1,), start, dtype=torch.int32,
+                                   device=dev), 9)
+            _check(table, planes, words, p2, p3, gate, plain)
+            got.append(int(gate.flag))
+        assert got == [start or flag] * 2
+
+
+@pytest.mark.parametrize("lanes", [64, 128])
+@pytest.mark.parametrize("wide", [False, True])
+def test_gated_upsert_kernel_writes_nothing_behind_a_closed_gate(dev, wide,
+                                                                 lanes):
+    """A batch that overflows one row: the check closes the gate and
+    K4/K5 then leave every plane and the counts bit-identical, with zero
+    tallies and stats, as their plain versions do; on the open gate of a
+    batch that fits they equal the ungated plain version."""
+    for over in (1, 0):
+        rng = np.random.default_rng(lanes + over + wide)
+        table, planes, words, p2, p3, n_reads = gate_stream(
+            dev, wide, lanes, over, rng)
+        counts = torch.randint(0, 5, planes[0].shape, dtype=torch.int32,
+                               device=dev) * (planes[0] != 0)
+        twins = [None if p is None else p.clone() for p in planes]
+        c2 = counts.clone()
+        start = [None if p is None else p.clone() for p in planes]
+        c0 = counts.clone()
+        gate = Gate(torch.zeros(1, dtype=torch.int32, device=dev), 4)
+        _check(table, planes, words, p2, p3, gate)
+        high, stats = _upsert(table, planes, counts, words, p2, p3, n_reads,
+                              gate.flag)
+        phigh, pstats = _upsert(table, twins, c2, words, p2, p3, n_reads,
+                                gate.flag, plain=True)
+        torch.cuda.synchronize()
+        for a, b in zip(planes, twins):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert torch.equal(counts, c2) and torch.equal(high, phigh)
+        assert torch.equal(stats, pstats)
+        if over:
+            assert int(gate.flag) == 4 and int(stats.abs().sum()) == 0
+            assert int(high.abs().sum()) == 0 and torch.equal(counts, c0)
+            for a, b in zip(planes, start):
+                assert (a is None and b is None) or torch.equal(a, b)
+        else:
+            assert int(gate.flag) == 0 and int(stats[1]) > 0
+
+
+@pytest.mark.parametrize("k", [9, 25])
+def test_gated_replay_on_the_card_equals_cpu(dev, tmp_path, k):
+    """The engine's gated grow-and-replay (tests/test_torch_gated_replay.py)
+    at --dispatch-group 3 on cuda and on the cpu: outputs, totals and final
+    planes equal, and the check kernel launched."""
+    import nomalise_kmers_multi_large_torch.table as port_table
+    from nomalise_kmers_multi_large_torch import backend
+    from nomalise_kmers_multi_large_torch.engine.pipeline import Normalizer
+    from test_torch_gated_replay import _config, _run, _write_reads
+
+    fa = _write_reads(tmp_path / "r.fa", k, seed=k)
+    orig = port_table.default_rows_wide
+    port_table.default_rows_wide = lambda k, memory_bytes=None: 512
+    try:
+        got = {}
+        for d in ("cuda", "cpu"):
+            backend.reset_launches()
+            norm = Normalizer(_config(tmp_path, d, fa, k, 3, 1), device=d)
+            rep, out, err = _run(norm)
+            assert "table row overflow" in err
+            got[d] = (rep.total_processed, rep.total_printed, out,
+                      norm.tables[0].rows,
+                      [None if x is None else x.cpu() for x in norm.states[0]])
+            if d == "cuda":
+                name = ("bucket_overflow_check_wide" if k > 15
+                        else "bucket_overflow_check")
+                assert backend.launches()[name] > 0
+    finally:
+        port_table.default_rows_wide = orig
+    a, b = got["cuda"], got["cpu"]
+    assert a[:4] == b[:4]
+    for x, y in zip(a[4], b[4]):
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 # ----------------------------------------------------------------------
